@@ -9,18 +9,28 @@ either is missing or any check fails. Phases:
 1. device: card name and power limit, torch / CUDA / nvcc versions, full fp32;
 2. build: the hand-written kernels of ``csrc/`` (nvcc, sm_90a), with ptxas
    register and shared-memory lines;
-3. kernels against their plain PyTorch versions on the card, at the main
-   path's shapes: knn_grid (8, 256, 512) within rtol 1e-5 / atol 1e-6,
-   mad (40 rows of 131072) and radius (8, 16384) bit-equal, radius with the
-   z-range tile skip on and off; median times (CUDA events) of kernel and
-   plain version beside the bound at those shapes;
+3. kernels against their plain PyTorch versions on the card, at the paths'
+   shapes: knn_grid (8, 256, 512) within rtol 1e-5 / atol 1e-6, mad (40
+   rows of 131072) and radius (8, 16384) bit-equal, radius with the z-range
+   tile skip on and off; exact_knn bit-equal (+inf pattern included) at
+   (8, 16384) (the exact mode's compacted road clouds), (1, 131072) (a whole
+   scene cloud with outliers) and on edge frames (duplicates, fewer than k
+   valid points, no valid point, nan garbage, a ragged capacity); median
+   times (CUDA events) of kernel and plain version beside the bound;
 4. the geometry tail on analytic scenes (true masks and disparity) on the
-   card and on the CPU: dist_rw / dist_f2f agree within 1e-3 m, rw MAE
-   against the analytic width under 0.1 m, launches per batch K1 x1,
-   K2 x4, K3 x1;
+   card and on the CPU, in both statistical modes: dist_rw / dist_f2f agree
+   within 1e-3 m, rw MAE against the analytic width under 0.1 m, launches
+   per batch K1 x1, K2 x4, K3 x1 (grid) and K2 x4, K3 x1, K4 x1 (exact);
 5. end to end at full width: full-size FCN-8s/VGG16 and monodepth-vgg with
    seeded random weights, ``process_batch`` on 8 rendered 1024x2048 uint8
-   frames in float32 and bfloat16, launch counts, frames/s.
+   frames in float32 and bfloat16 (grid mode) and bfloat16 (exact mode),
+   launch counts, the outputs' devices, frames/s;
+6. the other entry points: ``process_frame_staged`` on one 1024x2048 frame
+   (its stage times; outputs equal ``process_frame``'s; K2 x5, K3 x1, K4 x1),
+   and ``python -m semantic_depth_tpu_torch.utils.outlier_removal`` in a
+   subprocess on a PLY of the phase-3 scene cloud, whose output must equal
+   the file written from what the plain K4 and K3 versions keep on the
+   card; an info line says which image codecs (cv2, PIL, matplotlib) import.
 
 The second-to-last lines are the card's name and power limit and one JSON
 object with the kernels' numbers; the last line is
@@ -29,11 +39,13 @@ object with the kernels' numbers; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -89,6 +101,27 @@ def bound_ms(n_bytes, n_ops):
     t_bytes = n_bytes / _HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / _FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_counters():
+    """Each kernel wrapper by its row name; each counts its own launches."""
+    from semantic_depth_tpu_torch.ops import exact_knn, knn_grid, mad, radius
+
+    return {"knn_grid": knn_grid.knn_mean_distances_grid, "mad": mad.mad_keep_mask,
+            "radius": radius.radius_counts, "exact_knn": exact_knn.knn_mean_distances_exact}
+
+
+# launches per batch of each path's main run
+GRID_LAUNCHES = {"knn_grid": 1, "mad": 4, "radius": 1, "exact_knn": 0}
+EXACT_LAUNCHES = {"knn_grid": 0, "mad": 4, "radius": 1, "exact_knn": 1}
+STAGED_LAUNCHES = {"knn_grid": 0, "mad": 5, "radius": 1, "exact_knn": 1}
+
+
+def exact_config(**kw):
+    from semantic_depth_tpu_torch import config
+
+    base = config.munich_pipeline_config(**kw)
+    return dataclasses.replace(base, road=dataclasses.replace(base.road, stat_mode="exact"))
 
 
 def reset_counts(mods):
@@ -258,11 +291,134 @@ def phase_kernels(dev, scenes):
     return rows
 
 
-def phase_geometry(dev, scenes, counters):
+def exact_road_clouds(scenes):
+    """The exact mode's K4 input: the 8 scenes' road clouds through the
+    chain up to the compaction (keep_beyond, MAD y and x, plane cut,
+    slab-aware compaction to 16384 slots), as ``_denoise_road`` runs it."""
+    from semantic_depth_tpu_torch import camera, config
+    from semantic_depth_tpu_torch.ops import pcl
+
+    cfg = config.munich_pipeline_config()
+    rc = cfg.road
+    cloud = pcl.from_dense(
+        camera.reproject_disparity(scenes["disp"], cfg.camera), scenes["small"], scenes["road"])
+    cloud = pcl.keep_beyond(cloud, 2, rc.z_keep_beyond)
+    cloud = pcl.mad_filter(cloud, rc.mad_y.axis, rc.mad_y.threshold)
+    cloud = pcl.mad_filter(cloud, rc.mad_x.axis, rc.mad_x.threshold)
+    cloud, _ = pcl.plane_inlier_filter(cloud, rc.plane.axis, rc.plane.threshold)
+    depth_rw = cfg.depth - cfg.rw_depth_offset
+    packed, _ = pcl.compact_slab_aware(
+        cloud, rc.neighbor_capacity, 2, -(depth_rw + cfg.rw_slab_halfwidth),
+        -(depth_rw - cfg.rw_slab_halfwidth))
+    return packed.xyz.contiguous(), packed.valid.contiguous()
+
+
+def scene_cloud_with_outliers(scenes, dev):
+    """(1, 131072): every point of scene 0's 256x512 cloud, 1% of the rows
+    replaced by uniform outliers in a box around the scene."""
+    from semantic_depth_tpu_torch import camera, config
+
+    cfg = config.munich_pipeline_config()
+    pts = camera.reproject_disparity(scenes["disp"][:1], cfg.camera).reshape(1, -1, 3)
+    rgb = scenes["small"][:1].reshape(1, -1, 3)
+    g = torch.Generator(device="cpu").manual_seed(4)
+    n = pts.shape[1]
+    rows = torch.randperm(n, generator=g)[: n // 100].to(dev)
+    lo = torch.tensor([-40.0, -10.0, -100.0], device=dev)
+    span = torch.tensor([80.0, 20.0, 96.0], device=dev)
+    pts = pts.clone()
+    pts[0, rows] = lo + span * torch.rand((rows.numel(), 3), generator=g).to(dev)
+    return pts.contiguous(), torch.ones((1, n), dtype=torch.bool, device=dev), rgb
+
+
+def exact_knn_edge_frames(xyz16k, valid16k, dev):
+    """(4, 5000), a capacity off every tile: a road cloud with nan on its
+    invalid rows, coincident duplicates, 4 < k valid points, none valid."""
+    c = 5000
+    xyz = xyz16k[:4, :c].clone()
+    valid = valid16k[:4, :c].clone()
+    xyz[0][~valid[0]] = float("nan")
+    valid[1] = True
+    xyz[1, :100] = xyz[1, 0]  # 100 coincident points
+    xyz[1, 100:400:2] = xyz[1, 101:401:2]  # and 150 pairs
+    valid[2] = False
+    valid[2, torch.tensor([0, 777, 4096, 4999], device=dev)] = True
+    valid[3] = False
+    return xyz.contiguous(), valid.contiguous()
+
+
+def exact_knn_bound(xyz, valid):
+    """Least time for the pairs this data needs: n^2 (valid query, valid
+    candidate) pairs per frame at 10 float32 operations each (three
+    products and two sums of the cross term, the norm sum, the doubling,
+    the subtraction, the clamp and the compare), against reading each
+    point (12 + 1 bytes) and writing its mean (4 bytes) once."""
+    n = valid.sum(-1).double()
+    pairs = float((n * n).sum())
+    b, c = valid.shape
+    return bound_ms(b * c * (12 + 1 + 4), pairs * 10.0) + (pairs,)
+
+
+def phase_exact_knn(dev, scenes):
+    from semantic_depth_tpu_torch.ops import exact_knn
+
+    log("[phase 3] K4 exact_knn")
+    knn = exact_knn.knn_mean_distances_exact
+    plain = exact_knn.knn_mean_distances_exact_plain
+    xyz, valid = exact_road_clouds(scenes)
+    check(xyz.shape == (8, 16384, 3), "K4 input is (8, 16384) compacted road clouds "
+          f"({valid.sum(-1).tolist()} valid)")
+    big_xyz, big_valid, big_rgb = scene_cloud_with_outliers(scenes, dev)
+    check(big_xyz.shape == (1, 131072, 3), "K4 input is (1, 131072) scene cloud with outliers")
+    edge_xyz, edge_valid = exact_knn_edge_frames(xyz, valid, dev)
+    shapes = {}
+    for name, (x, v) in (("road (8, 16384)", (xyz, valid)),
+                         ("scene (1, 131072)", (big_xyz, big_valid)),
+                         ("edge frames (4, 5000)", (edge_xyz, edge_valid))):
+        got = knn(x, v, 10)
+        want = plain(x, v, 10)
+        torch.cuda.synchronize()
+        check(torch.equal(torch.isinf(got), torch.isinf(want))
+              and bool(torch.isfinite(got[v]).all()),
+              f"K4 {name}: +inf pattern equal to the plain version's, valid rows finite")
+        fin = torch.isfinite(want)
+        err = (got[fin] - want[fin]).abs().max().item() if fin.any() else 0.0
+        check(torch.equal(got, want), f"K4 {name}: bit-equal to the plain version "
+              f"(max abs err {err}, {int(fin.sum())} finite)")
+        if name.startswith("edge"):
+            check(bool(torch.isinf(got[3]).all()) and bool(torch.isfinite(got[v]).all())
+                  and float(got[1, :100].max()) == 0.0,
+                  "K4 edge frames: no valid point -> +inf; duplicates at 0; 4 < k points finite")
+            continue
+        t_bound, by, pairs = exact_knn_bound(x, v)
+        iters = 20 if x.shape[1] <= 16384 else 5
+        shapes[name] = dict(
+            max_abs_err=err, ms=cuda_ms(lambda: knn(x, v, 10), iters=iters),
+            plain_ms=cuda_ms(lambda: plain(x, v, 10), iters=3 if iters == 20 else 2, warmup=1),
+            bound_ms=t_bound, bound_by=by, pairs_needed=pairs,
+            pairs_all=float(x.shape[0]) * x.shape[1] ** 2)
+        log(f"  K4 {name}: kernel {shapes[name]['ms']:.4f} ms, plain "
+            f"{shapes[name]['plain_ms']:.4f} ms, bound {t_bound:.4f} ms ({by}), "
+            f"{pairs:.4g} pairs needed")
+    main = shapes["road (8, 16384)"]
+    row = dict(
+        name="exact_knn", route="cuda", source="semantic_depth_tpu_torch/csrc/exact_knn.cu",
+        replaces="semantic_depth_tpu/ops/pallas_exact_knn.py:32",
+        max_abs_err=max(r["max_abs_err"] for r in shapes.values()),
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=None, library_note=_NO_LIBRARY,
+        shape="xyz (8, 16384, 3) f32, valid (8, 16384), k=10", shapes=shapes,
+    )
+    return row, (big_xyz, big_valid, big_rgb)
+
+
+def phase_geometry(dev, scenes, counters, stat_mode="grid"):
     from semantic_depth_tpu_torch import config, pipeline
     from semantic_depth_tpu_torch.models import FCN8s, Monodepth
 
-    cfg = config.munich_pipeline_config()
+    log(f"[phase 4] geometry tail, stat_mode {stat_mode!r}")
+    cfg = exact_config() if stat_mode == "exact" else config.munich_pipeline_config()
+    expected = EXACT_LAUNCHES if stat_mode == "exact" else GRID_LAUNCHES
     # the geometry tail does not touch the networks: tiny ones will do
     pipe_gpu, pipe_cpu = (
         pipeline.SemanticDepthPipeline(
@@ -281,9 +437,9 @@ def phase_geometry(dev, scenes, counters):
         log(f"  cuda geometry tail: {geom_ms:.3f} ms per batch of 8 (CUDA events, median of 5)")
         t0 = time.time()
         out_cpu = pipe_cpu._batch_geometry(*[a.cpu() for a in args], cam)
-        log(f"  cpu geometry tail: {time.time() - t0:.1f} s")
-    check(counts == {"knn_grid": 1, "mad": 4, "radius": 1},
-          f"geometry launches per batch {counts}")
+        cpu_s = time.time() - t0
+        log(f"  cpu geometry tail: {cpu_s:.1f} s")
+    check(counts == expected, f"{stat_mode} geometry launches per batch {counts}")
     rw_g, rw_c = out_gpu.dist_rw.cpu().numpy(), out_cpu.dist_rw.numpy()
     f2f_g, f2f_c = out_gpu.dist_f2f.cpu().numpy(), out_cpu.dist_f2f.numpy()
     log(f"  dist_rw  cuda {rw_g.tolist()}\n  dist_rw  cpu  {rw_c.tolist()}")
@@ -296,34 +452,46 @@ def phase_geometry(dev, scenes, counters):
     f2f_mae = float(np.mean(np.abs(f2f_g - scenes["f2f_true"])))
     log(f"  rw MAE {rw_mae:.4f} m, f2f MAE {f2f_mae:.4f} m against the analytic scenes")
     check(np.isfinite(rw_mae) and rw_mae < 0.1, f"cuda rw MAE {rw_mae:.4f} m < 0.1 m")
-    return dict(rw_mae_m=rw_mae, f2f_mae_m=f2f_mae, launches=counts, cuda_ms=geom_ms)
+    kept = out_gpu.road_cloud.valid.sum(-1).tolist()
+    log(f"  road points kept per frame: {kept}")
+    return dict(rw_mae_m=rw_mae, f2f_mae_m=f2f_mae, launches=counts, cuda_ms=geom_ms,
+                cpu_s=cpu_s, max_cuda_cpu_rw_m=float(np.nanmax(np.abs(rw_g - rw_c))),
+                max_cuda_cpu_f2f_m=float(np.nanmax(np.abs(f2f_g - f2f_c))), road_kept=kept)
 
 
-def phase_end_to_end(dev, counters, n_timed=7):
+def full_pipeline(dev, dtype_name, stat_mode):
+    """Full-size FCN-8s/VGG16 and monodepth-vgg with seeded random weights."""
     from semantic_depth_tpu_torch import config, pipeline
     from semantic_depth_tpu_torch.models import FCN8s, Monodepth
-    from semantic_depth_tpu_torch.utils.bench_scenes import scene_pool
 
-    imgs = scene_pool(8, 1024, 2048, seed=3)[0]
-    frames = torch.from_numpy(imgs).to(dev)  # uint8 (8, 1024, 2048, 3)
+    dtype = torch.bfloat16 if dtype_name == "bfloat16" else torch.float32
+    cfg = (exact_config if stat_mode == "exact" else config.munich_pipeline_config)(
+        compute_dtype=dtype_name)
+    torch.manual_seed(0)
+    with torch.device(dev):
+        fcn = FCN8s(num_classes=cfg.segmenter.num_classes, compute_dtype=dtype)
+        torch.manual_seed(1)
+        mono = Monodepth(encoder=cfg.monodepth.encoder, compute_dtype=dtype)
+    return pipeline.SemanticDepthPipeline(cfg, fcn, mono, device=dev)
+
+
+def phase_end_to_end(dev, counters, frames, n_timed=7):
     results = {}
-    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        log(f"[phase 5] process_batch 8 x 1024x2048 uint8, compute_dtype {dtype_name}")
-        cfg = config.munich_pipeline_config(compute_dtype=dtype_name)
-        torch.manual_seed(0)
-        with torch.device(dev):
-            fcn = FCN8s(num_classes=cfg.segmenter.num_classes, compute_dtype=dtype)
-            torch.manual_seed(1)
-            mono = Monodepth(encoder=cfg.monodepth.encoder, compute_dtype=dtype)
-        pipe = pipeline.SemanticDepthPipeline(cfg, fcn, mono, device=dev)
+    for key, dtype_name, stat_mode in (("float32", "float32", "grid"),
+                                       ("bfloat16", "bfloat16", "grid"),
+                                       ("bfloat16_exact", "bfloat16", "exact")):
+        log(f"[phase 5] process_batch 8 x 1024x2048 uint8, compute_dtype {dtype_name}, "
+            f"stat_mode {stat_mode!r}")
+        pipe = full_pipeline(dev, dtype_name, stat_mode)
+        cfg = pipe.config
         pipe.process_batch(frames)  # warm-up (cuDNN plans, kernel library load)
         torch.cuda.synchronize()
         reset_counts(counters)
         out = pipe.process_batch(frames)
         torch.cuda.synchronize()
         counts = read_counts(counters)
-        check(counts == {"knn_grid": 1, "mad": 4, "radius": 1},
-              f"{dtype_name} main-path launches per batch {counts}")
+        expected = EXACT_LAUNCHES if stat_mode == "exact" else GRID_LAUNCHES
+        check(counts == expected, f"{key} main-path launches per batch {counts}")
         h, w = cfg.input_height, cfg.input_width
         check(out.disparity.shape == (8, h, w) and out.disparity.dtype == torch.float32,
               "disparity (8, 256, 512) float32")
@@ -337,7 +505,8 @@ def phase_end_to_end(dev, counters, n_timed=7):
         check(out.dist_rw.shape == (8,) and out.dist_f2f.shape == (8,), "per-frame distances")
         tensors = [v for v in vars(out).values() if isinstance(v, torch.Tensor)]
         tensors += [out.road_cloud.xyz, out.road_cloud.valid]
-        check(all(t.device.type == "cuda" for t in tensors), "every output on cuda")
+        devices = sorted({str(t.device) for t in tensors})
+        check(all(t.device.type == "cuda" for t in tensors), f"every output on cuda {devices}")
         times = []
         for _ in range(n_timed):
             t0 = time.perf_counter()
@@ -345,13 +514,131 @@ def phase_end_to_end(dev, counters, n_timed=7):
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         med = statistics.median(times)
-        results[dtype_name] = dict(batch_s_median=med, frames_per_s=8.0 / med,
-                                   batch_s_all=times, launches=counts)
-        log(f"  {dtype_name}: median {med * 1e3:.2f} ms per batch of 8 -> "
+        results[key] = dict(batch_s_median=med, frames_per_s=8.0 / med, batch_s_all=times,
+                            launches=counts, output_devices=devices,
+                            road_points_kept=out.road_cloud.valid.sum(-1).tolist())
+        log(f"  {key}: median {med * 1e3:.2f} ms per batch of 8 -> "
             f"{8.0 / med:.2f} frames/s ({n_timed} timed batches)")
-        del pipe, fcn, mono, out
+        del pipe, out
         torch.cuda.empty_cache()
     return results
+
+
+def _outputs_mismatch(a, b):
+    """Names of the FrameOutputs fields that differ (nan equal to nan)."""
+    from semantic_depth_tpu_torch.ops import pcl
+
+    bad = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        pairs = ([(getattr(x, n), getattr(y, n)) for n in ("xyz", "rgb", "valid")]
+                 if isinstance(x, pcl.MaskedCloud) else [(x, y)])
+        for u, v in pairs:
+            if not (u.shape == v.shape and torch.equal(u.isnan(), v.isnan())
+                    and torch.equal(u.nan_to_num(), v.nan_to_num())):
+                bad.append(f.name)
+    return bad
+
+
+def phase_staged(dev, counters, frame):
+    log("[phase 6] process_frame_staged, one 1024x2048 frame, bfloat16, stat_mode 'exact'")
+    pipe = full_pipeline(dev, "bfloat16", "exact")
+    pipe.process_frame_staged(frame)  # its first call per shape warms every stage up
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    staged, times = pipe.process_frame_staged(frame)
+    wall = time.perf_counter() - t0
+    counts = read_counts(counters)
+    check(counts == STAGED_LAUNCHES, f"staged launches per frame {counts}")
+    check(set(times) == {"read", "semantic", "disparity", "to3D", "road", "rw", "fences", "f2f"},
+          "staged times carry the JAX keys")
+    log("  stage ms: " + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in times.items())
+        + f"; wall {wall * 1e3:.3f}")
+    fused = pipe.process_frame(frame)
+    torch.cuda.synchronize()
+    bad = _outputs_mismatch(staged, fused)
+    check(not bad, f"staged outputs equal process_frame's (differ: {bad})")
+    check(staged.disparity.device.type == "cuda" and staged.road_cloud.valid.is_cuda,
+          "staged outputs on cuda")
+    del pipe
+    torch.cuda.empty_cache()
+    return dict(times_s=times, wall_s=wall, launches=counts)
+
+
+def phase_outlier_removal(dev, cloud):
+    """The CLI in a subprocess against the plain K4 + K3 chain on the card."""
+    from semantic_depth_tpu_torch.io.ply import PlyCloud, read_ply
+    from semantic_depth_tpu_torch.ops import exact_knn, neighbors, radius
+    from semantic_depth_tpu_torch.utils.outlier_removal import filter_ply
+
+    log("[phase 6] outlier_removal entry point on the (1, 131072) scene cloud")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    xyz, _, rgb = cloud
+    with tempfile.TemporaryDirectory() as tmp:
+        src = PlyCloud(xyz[0].cpu().numpy(), rgb[0].cpu().numpy(),
+                       os.path.join(tmp, "scene")).save()
+        out = os.path.join(tmp, "inliers.ply")
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "semantic_depth_tpu_torch.utils.outlier_removal", src,
+             "--out", out], cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, timeout=600)
+        sub_s = time.time() - t0
+        log("  " + "\n  ".join(proc.stdout.strip().splitlines()[-5:]))
+        check(proc.returncode == 0, f"outlier_removal subprocess exits 0 ({sub_s:.1f} s)")
+
+        # the same cloud as filter_ply builds it, through the plain versions
+        pts, cols = read_ply(src)
+        n = pts.shape[0]
+        cap = 1 << max(10, (n - 1).bit_length())
+        x = np.zeros((cap, 3), np.float32)
+        rgb_np = np.zeros((cap, 3), np.float32)
+        x[:n], rgb_np[:n] = pts, cols
+        xt = torch.from_numpy(x)[None].to(dev)
+        vt = (torch.arange(cap) < n)[None].to(dev)
+
+        def chain(knn, counts):
+            """filter_ply's two filters at its defaults, unweighted radius."""
+            keep = neighbors._statistical_keep(knn(xt, vt, 10), vt, 0.5)
+            return keep & (counts(xt, keep, keep.float(), 0.5) > 80)
+
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        keep = chain(exact_knn.knn_mean_distances_exact_plain,
+                     radius.radius_counts_plain)[0].cpu().numpy()
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        want = PlyCloud(x[keep], rgb_np[keep], os.path.join(tmp, "plain")).save()
+        with open(out, "rb") as a, open(want, "rb") as b:
+            same = a.read() == b.read()
+        check(same, f"the CLI keeps what the plain K4 + K3 versions keep on the card "
+              f"({int(keep.sum())} of {n} points)")
+        kernel_ms = cuda_ms(
+            lambda: chain(exact_knn.knn_mean_distances_exact, radius.radius_counts), iters=5,
+            warmup=1)
+        t0 = time.perf_counter()
+        filter_ply(src, os.path.join(tmp, "again.ply"))
+        inproc_s = time.perf_counter() - t0
+    log(f"  CLI subprocess {sub_s:.2f} s; filter_ply in process {inproc_s * 1e3:.1f} ms; "
+        f"K4 + K3 chain {kernel_ms:.3f} ms on the kernels, {plain_ms:.1f} ms on the plain "
+        f"versions (capacity {cap}, {n} points read)")
+    return dict(points=n, capacity=cap, kept=int(keep.sum()), subprocess_s=sub_s,
+                filter_ply_in_process_s=inproc_s, kernel_chain_ms=kernel_ms,
+                plain_chain_ms=plain_ms)
+
+
+def codec_info():
+    """Which image codecs import on this host (information, not a check)."""
+    code = ("import importlib\n"
+            "for m in ('cv2', 'PIL', 'matplotlib'):\n"
+            "    try:\n"
+            "        print(m, 'imports', getattr(importlib.import_module(m), '__version__', ''))\n"
+            "    except Exception as e:\n"
+            "        print(m, 'does not import:', type(e).__name__, e)\n")
+    found = _run([sys.executable, "-c", code]).splitlines()
+    log("info: image codecs on this host: " + "; ".join(found))
+    return found
 
 
 def main() -> int:
@@ -360,7 +647,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from semantic_depth_tpu_torch.ops import _cuda, knn_grid, mad, radius
+        from semantic_depth_tpu_torch.ops import _cuda
         from semantic_depth_tpu_torch.runtime import set_full_fp32
     except ImportError as e:
         log(f"FAIL: the port is not importable here ({e})")
@@ -382,20 +669,27 @@ def main() -> int:
     build_s = time.time() - t0
     log(f"  kernels built and loaded in {build_s:.1f} s")
 
-    counters = {"knn_grid": knn_grid.knn_mean_distances_grid, "mad": mad.mad_keep_mask,
-                "radius": radius.radius_counts}
+    counters = kernel_counters()
     log("[phase 3] kernels against their plain versions")
     scenes = scene_batch(8, 256, 512, seed=0, dev=dev)
     with torch.inference_mode():
         rows = phase_kernels(dev, scenes)
-    log("[phase 4] geometry tail on analytic scenes, cuda against cpu")
-    geom = phase_geometry(dev, scenes, counters)
-    e2e = phase_end_to_end(dev, counters)
+        rows["exact_knn"], scene_cloud = phase_exact_knn(dev, scenes)
+    geom = {mode: phase_geometry(dev, scenes, counters, mode) for mode in ("grid", "exact")}
+    from semantic_depth_tpu_torch.utils.bench_scenes import scene_pool
+
+    frames = torch.from_numpy(scene_pool(8, 1024, 2048, seed=3)[0]).to(dev)  # uint8
+    e2e = phase_end_to_end(dev, counters, frames)
+    entry = dict(staged=phase_staged(dev, counters, frames[0]),
+                 outlier_removal=phase_outlier_removal(dev, scene_cloud),
+                 codecs=codec_info())
 
     for name, row in rows.items():
-        row["launches"] = e2e["float32"]["launches"][name]
+        row["launches"] = e2e["bfloat16_exact" if name == "exact_knn" else "float32"][
+            "launches"][name]
     summary = dict(card=smi, build_s=build_s, geometry=geom, end_to_end=e2e,
-                   kernels=list(rows.values()), wall_s=time.time() - t_start)
+                   entry_points=entry, kernels=list(rows.values()),
+                   wall_s=time.time() - t_start)
     log("summary: " + json.dumps(summary))
     log(f"[done] wall {time.time() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -10,17 +10,18 @@ The reference runs Open3D's KD-tree filters on the road cloud
 with Open3D 0.x semantics (line-by-line notes in tests/oracles.py):
 
 * statistical: the threshold is mean + std_ratio * sample std of the
-  per-point mean kNN distances; the moments divide by the full count while
-  their sums skip zero distances; a point survives iff 0 < d < threshold.
-  The grid mode windows the kNN search on the image grid.
+  per-point mean kNN distances, whose sums skip zero distances; a point
+  survives iff 0 < d < threshold. The exact filter searches the whole cloud
+  and its moments divide by the full valid count n (every point finds at
+  least itself); the grid mode windows the search on the image grid and
+  divides by the count of finite means instead.
 * radius: a point survives if the count of cloud points with squared
   distance STRICTLY below radius^2, itself included, exceeds ``nb_points``.
 
 Every function takes a leading frame-batch dimension. On CUDA tensors the
 kNN and radius counts launch the hand-written kernels (``ops/knn_grid.py``,
-``ops/radius.py``), at the places where the JAX package dispatches to
-Pallas; CPU tensors take their plain versions. The exact O(N^2) kNN mode
-(``stat_mode="exact"``) is not ported yet.
+``ops/exact_knn.py``, ``ops/radius.py``), at the places where the JAX
+package dispatches to Pallas; CPU tensors take their plain versions.
 """
 
 from __future__ import annotations
@@ -29,17 +30,26 @@ from typing import Tuple
 
 import torch
 
-from . import knn_grid, radius
+from . import exact_knn, knn_grid, radius
 from .knn_grid import knn_mean_distances_grid
 from .pcl import MaskedCloud
 
 __all__ = [
+    "knn_mean_distances",
     "knn_mean_distances_grid",
     "radius_counts",
     "radius_counts_weighted",
     "radius_outlier_filter",
+    "statistical_outlier_filter",
     "statistical_outlier_filter_grid",
 ]
+
+
+def knn_mean_distances(cloud: MaskedCloud, k: int) -> torch.Tensor:
+    """Mean distance from each valid point to its min(k, n) nearest valid
+    points of its frame (self included at 0); +inf on invalid rows.
+    cloud: (B, C) rows; one launch of the exact kNN kernel on the card."""
+    return exact_knn.knn_mean_distances_exact(cloud.xyz.contiguous(), cloud.valid.contiguous(), k)
 
 
 def radius_counts(cloud: MaskedCloud, radius_m: float) -> torch.Tensor:
@@ -76,6 +86,28 @@ def statistical_outlier_filter_grid(
     var = torch.where(pos, (mean_d - mu) ** 2, 0.0).sum(dims, keepdim=True) / (n - 1.0)
     threshold = mu + std_ratio * torch.sqrt(var)
     return pos & (mean_d < threshold)
+
+
+def _statistical_keep(mean_d: torch.Tensor, valid: torch.Tensor, std_ratio: float) -> torch.Tensor:
+    """The exact filter's cut over (B, C) mean distances: per-frame moments
+    divided by the full valid count n (not the finite count of the grid
+    filter), sums over avg_distance > 0 only."""
+    n = valid.float().sum(-1, keepdim=True)
+    pos = valid & (mean_d > 0)
+    mu = torch.where(pos, mean_d, 0.0).sum(-1, keepdim=True) / n
+    var = torch.where(pos, (mean_d - mu) ** 2, 0.0).sum(-1, keepdim=True) / (n - 1.0)
+    threshold = mu + std_ratio * torch.sqrt(var)
+    return pos & (mean_d < threshold)
+
+
+def statistical_outlier_filter(
+    cloud: MaskedCloud, nb_neighbors: int, std_ratio: float
+) -> MaskedCloud:
+    """Open3D statistical_outlier_removal over (B, C) clouds with the exact
+    kNN (semantic_depth.py:234): survivors need avg_distance > 0 and
+    avg_distance < mean + std_ratio * sample_std of their frame."""
+    mean_d = knn_mean_distances(cloud, nb_neighbors)
+    return cloud.with_mask(_statistical_keep(mean_d, cloud.valid, std_ratio))
 
 
 def radius_outlier_filter(

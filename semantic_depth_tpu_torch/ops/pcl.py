@@ -60,6 +60,15 @@ def from_dense(points: torch.Tensor, colors: torch.Tensor, mask: torch.Tensor) -
     )
 
 
+def valid_span(valid: torch.Tensor) -> int:
+    """One past the last row that is valid in any frame of ``valid``
+    (..., N): every row beyond it is invalid in every frame. Compacted
+    clouds keep their valid rows in front, so the plain O(N^2) neighbour
+    versions work on this span only."""
+    rows = valid.reshape(-1, valid.shape[-1]).any(0).nonzero()
+    return int(rows[-1]) + 1 if rows.numel() else 0
+
+
 # ---------------------------------------------------------------------------
 # Masked reductions (over the last axis)
 # ---------------------------------------------------------------------------

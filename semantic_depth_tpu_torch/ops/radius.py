@@ -16,8 +16,10 @@ multiply-adds, so their counts are bit-equal on the card.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import _cuda
+from .pcl import valid_span
 
 _TILE = 128  # csrc/radius.cu: queries per block, candidates per tile
 _PLAIN_BLOCK = 1024  # candidates per step of the plain version (bounds its memory)
@@ -54,9 +56,14 @@ def _prepare(xyz: torch.Tensor, valid: torch.Tensor, weights: torch.Tensor, radi
 def radius_counts_plain(
     xyz: torch.Tensor, valid: torch.Tensor, weights: torch.Tensor, radius: float
 ) -> torch.Tensor:
-    """Plain PyTorch version over candidate blocks (no skipping: the skip is
-    exact, so the result is the same)."""
-    w = torch.where(valid, weights.float(), 0.0)
+    """Plain PyTorch version over candidate blocks (no z-range skipping: the
+    skip is exact, so the result is the same). Rows past the last valid one
+    (``pcl.valid_span``) count 0 without being searched."""
+    c = valid.shape[-1]
+    n = valid_span(valid)
+    valid = valid[..., :n]
+    xyz = xyz[..., :n, :]
+    w = torch.where(valid, weights[..., :n].float(), 0.0)
     cands = torch.where(valid[..., None], xyz, 0.0).float()
     qx, qy, qz = xyz.float().unbind(-1)
     cx, cy, cz = cands.unbind(-1)
@@ -64,13 +71,13 @@ def radius_counts_plain(
     sq_c = cx * cx + cy * cy + cz * cz
     r2 = float(radius) ** 2
     acc = torch.zeros_like(sq_q)
-    for j0 in range(0, xyz.shape[-2], _PLAIN_BLOCK):
+    for j0 in range(0, n, _PLAIN_BLOCK):
         sl = slice(j0, j0 + _PLAIN_BLOCK)
         cross = (qx[..., None] * cx[:, None, sl] + qy[..., None] * cy[:, None, sl]
                  + qz[..., None] * cz[:, None, sl])
         d2 = torch.clamp_min((sq_q[..., None] + sq_c[:, None, sl]) - 2.0 * cross, 0.0)
         acc += torch.where(d2 < r2, w[:, None, sl], 0.0).sum(-1)
-    return torch.where(valid, acc, 0.0)
+    return F.pad(torch.where(valid, acc, 0.0), (0, c - n))
 
 
 def radius_counts(

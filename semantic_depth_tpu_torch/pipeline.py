@@ -3,19 +3,23 @@
     resize (two float32 matrix products) -> FCN-8s softmax masks
     -> monodepth flip batch -> flip-average postprocess -> disparity scaling
     -> back-projection -> masked road denoise chain (MAD, plane, windowed
-       kNN statistical filter, slab-aware compaction, weighted radius filter)
+       kNN statistical filter, slab-aware compaction, weighted radius filter;
+       under road.stat_mode="exact" the exact kNN filter after the compaction)
     -> road-width endpoints [-> fence chains + plane intersections (f2f)]
     -> overlay
 
 The geometry tail runs the whole frame batch as a written-out leading
-dimension, so each hand-written kernel launches once per batch: the windowed
-kNN once, the MAD filter four times (road y, road x, fence y, the fence
-pair) and the radius count once.
+dimension, so each hand-written kernel launches once per batch: the kNN
+once (the windowed one, or the exact one under ``road.stat_mode="exact"``),
+the MAD filter four times (road y, road x, fence y, the fence pair) and the
+radius count once. ``process_frame_staged`` runs one frame stage by stage,
+for per-stage wall times.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import torch
@@ -76,14 +80,14 @@ def _denoise_road(cloud: pcl.MaskedCloud, cfg: PipelineConfig, grid_hw):
     """Road denoise chain (semantic_depth.py:206-245) over (B, H*W) clouds
     back-projected from (H, W) = ``grid_hw`` grids.
 
+    ``cfg.road.stat_mode`` picks the statistical filter: 'grid' windows the
+    kNN on the image grid before compaction; any other value runs the exact
+    kNN over the compacted cloud, as the JAX pipeline does.
+
     The radius filter's counts stay on the reference's 256x512 density
     scale: compacted (stride-subsampled) candidates carry their stride as
     weight, and a denser grid divides by the pixel ratio."""
     rc = cfg.road
-    if rc.stat_mode != "grid":
-        raise NotImplementedError(
-            "stat_mode='exact' (the exact kNN kernel) is not ported yet"
-        )
     cloud = pcl.keep_beyond(cloud, 2, rc.z_keep_beyond)
     cloud = pcl.mad_filter(cloud, rc.mad_y.axis, rc.mad_y.threshold)
     cloud = pcl.mad_filter(cloud, rc.mad_x.axis, rc.mad_x.threshold)
@@ -96,18 +100,27 @@ def _denoise_road(cloud: pcl.MaskedCloud, cfg: PipelineConfig, grid_hw):
     slab_lo = -(depth_rw + cfg.rw_slab_halfwidth)
     slab_hi = -(depth_rw - cfg.rw_slab_halfwidth)
     lead = cloud.valid.shape[:-1]
-    # the window stays (5, 21) at every resolution (JAX pipeline notes)
-    new_valid = neighbors.statistical_outlier_filter_grid(
-        cloud.xyz.reshape(lead + (h, w, 3)),
-        cloud.valid.reshape(lead + (h, w)),
-        rc.stat_nb_neighbors,
-        rc.stat_std_ratio,
-        rc.stat_window,
-    )
-    cloud = cloud.with_mask(new_valid.reshape(lead + (h * w,)))
-    cloud, weights = pcl.compact_slab_aware(
-        cloud, rc.neighbor_capacity, 2, slab_lo, slab_hi, px_scale
-    )
+    if rc.stat_mode == "grid":
+        # the window stays (5, 21) at every resolution (JAX pipeline notes)
+        new_valid = neighbors.statistical_outlier_filter_grid(
+            cloud.xyz.reshape(lead + (h, w, 3)),
+            cloud.valid.reshape(lead + (h, w)),
+            rc.stat_nb_neighbors,
+            rc.stat_std_ratio,
+            rc.stat_window,
+        )
+        cloud = cloud.with_mask(new_valid.reshape(lead + (h * w,)))
+        cloud, weights = pcl.compact_slab_aware(
+            cloud, rc.neighbor_capacity, 2, slab_lo, slab_hi, px_scale
+        )
+    else:
+        cloud, weights = pcl.compact_slab_aware(
+            cloud, rc.neighbor_capacity, 2, slab_lo, slab_hi, px_scale
+        )
+        cloud = neighbors.statistical_outlier_filter(
+            cloud, rc.stat_nb_neighbors, rc.stat_std_ratio
+        )
+        weights = torch.where(cloud.valid, weights, 0.0)
     cloud = neighbors.radius_outlier_filter(
         cloud, rc.radius_nb_points, rc.radius, weights=weights
     )
@@ -190,6 +203,17 @@ def resolve_frame_scalars(cfg: PipelineConfig, frame_width: int, focal, disparit
     return focal, disparity_mult
 
 
+def _no_fences(b: int, n: int, device):
+    """The fence outputs under approach 'rw': (dist_f2f, left_f2f,
+    right_f2f, left plane, right plane, left valid, right valid), nan and
+    empty, for a batch of ``b`` frames of ``n`` pixels."""
+    nan = float("nan")
+    pt = torch.full((b, 3), nan, device=device)
+    plane = torch.full((b, 4), nan, device=device)
+    none = torch.zeros((b, n), dtype=torch.bool, device=device)
+    return torch.full((b,), nan, device=device), pt, pt, plane, plane, none, none
+
+
 def _f32(x) -> float:
     """A scalar rounded to float32, as the JAX pipeline's traced scalars are."""
     return float(torch.tensor(float(x), dtype=torch.float32))
@@ -218,9 +242,13 @@ class SemanticDepthPipeline:
         Returns (small f32 (B,h,w,3) 0..255, road_masks, fence_masks)."""
         cfg = self.config
         small = resize_clip_u8(frames.float(), (cfg.input_height, cfg.input_width))
+        return (small,) + self._segment(small)
+
+    def _segment(self, small: torch.Tensor):
+        """FCN-8s forward + 0.5-threshold (road, fence) masks (semantic_depth.py:544-556)."""
         probs = torch.softmax(self.fcn(small), dim=-1)
-        thr = cfg.segmenter.threshold
-        return small, probs[..., 0] > thr, probs[..., 1] > thr
+        thr = self.config.segmenter.threshold
+        return probs[..., 0] > thr, probs[..., 1] > thr
 
     def _batch_disparity(self, small: torch.Tensor, disparity_mult: float) -> torch.Tensor:
         """Monodepth forward on the flip batch (semantic_depth.py:667-678);
@@ -254,11 +282,8 @@ class SemanticDepthPipeline:
             )
             fl_valid, fr_valid = fl.valid, fr.valid
         else:
-            nan = float("nan")
-            dist_f2f = torch.full((b,), nan, device=small.device)
-            left_f2f = right_f2f = torch.full((b, 3), nan, device=small.device)
-            lplane = rplane = torch.full((b, 4), nan, device=small.device)
-            fl_valid = fr_valid = torch.zeros((b, h * w), dtype=torch.bool, device=small.device)
+            dist_f2f, left_f2f, right_f2f, lplane, rplane, fl_valid, fr_valid = _no_fences(
+                b, h * w, small.device)
 
         overlay = segmentation_overlay(
             small, road_masks, fence_masks, cfg.segmenter.road_rgba, cfg.segmenter.fence_rgba
@@ -297,3 +322,111 @@ class SemanticDepthPipeline:
         """One frame (H0, W0, 3): a batch of one."""
         frame = torch.as_tensor(frame)
         return self.process_batch(frame[None], focal, disparity_mult).frame(0)
+
+    # --- per-stage profiling mode ---------------------------------------------
+    @torch.inference_mode()
+    def process_frame_staged(
+        self, frame, focal: Optional[float] = None, disparity_mult: Optional[float] = None
+    ):
+        """One frame (H0, W0, 3) stage by stage, with a device synchronise
+        after each stage, for real per-stage wall times in the reference's
+        ``_times.txt`` format (semantic_depth.py:100-454). Slower than
+        ``process_frame``: use it to profile, not to serve.
+
+        Returns (FrameOutputs, times): seconds under the keys read, semantic,
+        disparity, to3D, road, rw, fences, f2f. The fence chain runs its two
+        x cuts as two MAD launches (five per frame in all). The first call
+        for each frame shape runs every stage once untimed, so the times are
+        execution and not the first use's set-up (cuDNN plans, the kernel
+        library's load)."""
+        cfg = self.config
+        h, w = cfg.input_height, cfg.input_width
+        frame = torch.as_tensor(frame).to(self.device)
+        focal, disparity_mult = resolve_frame_scalars(cfg, frame.shape[1], focal, disparity_mult)
+        if not hasattr(self, "_stages"):
+            self._build_stages()
+        stages = self._stages
+        warm_key = tuple(frame.shape)
+        if getattr(self, "_stages_warm", None) != warm_key:
+            self._stages_warm = warm_key  # set first: the warm-up call recurses
+            self.process_frame_staged(frame, focal, disparity_mult)
+        cam, s_w = _scaled_camera(cfg, _f32(focal))
+        mult = _f32(_f32(disparity_mult) * s_w)
+        times = {}
+
+        def timed(key, stage, *args):
+            t0 = time.perf_counter()
+            out = stages[stage](*args)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            times[key] = time.perf_counter() - t0
+            return out
+
+        small = timed("read", "resize", frame[None])  # the read + resize slot
+        road_mask, fence_mask = timed("semantic", "segment", small)
+        disparity = timed("disparity", "disparity", small, mult)
+        points3d = timed("to3D", "to3d", disparity, cam)
+        road_cloud, road_plane = timed("road", "road", points3d, small, road_mask)
+        left_rw, right_rw, found, dist_rw = timed("rw", "rw", road_cloud, road_plane, cam)
+        if cfg.approach == "both":
+            fl_valid, fr_valid, lplane, rplane = timed(
+                "fences", "fences", points3d, small, fence_mask)
+            left_f2f, right_f2f, dist_f2f = timed("f2f", "f2f", road_plane, lplane, rplane)
+        else:
+            times["fences"] = times["f2f"] = 0.0
+            dist_f2f, left_f2f, right_f2f, lplane, rplane, fl_valid, fr_valid = _no_fences(
+                1, h * w, self.device)
+        out = FrameOutputs(
+            dist_rw=dist_rw, dist_f2f=dist_f2f, rw_found=found,
+            left_pt_rw=left_rw, right_pt_rw=right_rw,
+            left_pt_f2f=left_f2f, right_pt_f2f=right_f2f,
+            road_plane=road_plane, fence_left_plane=lplane, fence_right_plane=rplane,
+            road_mask=road_mask, fence_mask=fence_mask, disparity=disparity,
+            points3d=points3d, colors=small.flip(-1),
+            overlay_small=stages["overlay"](small, road_mask, fence_mask),
+            frame_small=small, road_cloud=road_cloud,
+            fence_left_valid=fl_valid, fence_right_valid=fr_valid,
+        )
+        return out.frame(0), times
+
+    def _build_stages(self):
+        """The stage functions of ``process_frame_staged``, each over a batch
+        of one frame."""
+        cfg = self.config
+        h, w = cfg.input_height, cfg.input_width
+
+        def road_stage(points3d, small, road_mask):
+            road = pcl.from_dense(points3d, small.flip(-1), road_mask)
+            return _denoise_road(road, cfg, (h, w))
+
+        def fences_stage(points3d, small, fence_mask):
+            fc = cfg.fence
+            fence = pcl.from_dense(points3d, small.flip(-1), fence_mask)
+            fence = pcl.mad_filter(fence, fc.mad_y.axis, fc.mad_y.threshold)
+            fence = pcl.threshold_abs(fence, 2, fc.z_abs_threshold)
+            left, right = pcl.split_by_mean(fence, 0)
+            left = pcl.mad_filter(left, fc.mad_x_left.axis, fc.mad_x_left.threshold)
+            left, lplane = pcl.plane_inlier_filter(
+                left, fc.plane_left.axis, fc.plane_left.threshold)
+            right = pcl.mad_filter(right, fc.mad_x_right.axis, fc.mad_x_right.threshold)
+            right, rplane = pcl.plane_inlier_filter(
+                right, fc.plane_right.axis, fc.plane_right.threshold)
+            return left.valid, right.valid, lplane, rplane
+
+        def f2f_stage(road_plane, lplane, rplane):
+            lp = pcl.planes_intersection_at_depth(road_plane, lplane, cfg.depth)
+            rp = pcl.planes_intersection_at_depth(road_plane, rplane, cfg.depth)
+            return lp, rp, pcl.distance_3d(lp, rp)
+
+        self._stages = {
+            "resize": lambda frames: resize_clip_u8(frames.float(), (h, w)),
+            "segment": self._segment,
+            "disparity": self._batch_disparity,
+            "to3d": camera_lib.reproject_disparity,
+            "road": road_stage,
+            "rw": lambda cloud, plane, cam: _road_width(cfg, cloud, plane, cam),
+            "fences": fences_stage,
+            "f2f": f2f_stage,
+            "overlay": lambda small, rm, fm: segmentation_overlay(
+                small, rm, fm, cfg.segmenter.road_rgba, cfg.segmenter.fence_rgba),
+        }

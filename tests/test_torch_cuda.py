@@ -15,7 +15,9 @@ import torch
 
 from semantic_depth_tpu_torch import config, pipeline
 from semantic_depth_tpu_torch.models import FCN8s, Monodepth
-from semantic_depth_tpu_torch.ops import knn_grid, mad, radius
+from semantic_depth_tpu_torch.io.ply import PlyCloud
+from semantic_depth_tpu_torch.ops import exact_knn, knn_grid, mad, radius
+from semantic_depth_tpu_torch.utils import outlier_removal
 from semantic_depth_tpu_torch.utils.bench_scenes import scene_pool
 
 pytestmark = pytest.mark.gpu
@@ -74,6 +76,35 @@ def test_radius_kernel_matches_plain_bit_equal(cuda):
     assert torch.equal(radius.radius_counts(xyz, valid, w, 0.5, skip=False), want)
 
 
+def _exact_knn_frames(c=1000):
+    """Frames of one (4, c) batch, c off the kernel's tiles: a road-like
+    cloud with nan garbage on its invalid rows, coincident duplicates, fewer
+    valid points than k, and no valid point at all."""
+    rng = np.random.default_rng(10)
+    xyz = (rng.normal(size=(4, c, 3)) * [2.0, 0.3, 5.0]).astype(np.float32)
+    valid = np.zeros((4, c), bool)
+    valid[0] = rng.random(c) < 0.8
+    xyz[0, ~valid[0]] = np.nan
+    valid[1, :300] = True
+    xyz[1, :40] = xyz[1, 0]  # 40 coincident points
+    xyz[1, 40:80:2] = xyz[1, 41:81:2]  # and pairs
+    valid[2, [3, 500, 999]] = True  # 3 < k valid points
+    return xyz, valid
+
+
+@pytest.mark.parametrize("k", [4, 10])
+def test_exact_knn_kernel_matches_plain_bit_equal(cuda, k):
+    xyz, valid = _exact_knn_frames()
+    x = torch.from_numpy(xyz).to(cuda)
+    v = torch.from_numpy(valid).to(cuda)
+    got = exact_knn.knn_mean_distances_exact(x, v, k)
+    want = exact_knn.knn_mean_distances_exact_plain(x, v, k)
+    assert torch.equal(got, want)  # the +inf pattern included
+    assert torch.isinf(got[3]).all() and torch.isfinite(got[v]).all()
+    # and the plain version on the CPU (IEEE sqrt and division for certain)
+    assert torch.equal(got.cpu(), exact_knn.knn_mean_distances_exact_plain(x.cpu(), v.cpu(), k))
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     p = torch.zeros((1, 32, 64, 3), device=cuda)
     v = torch.ones((1, 32, 64), dtype=torch.bool, device=cuda)
@@ -93,6 +124,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         radius.radius_counts(torch.zeros((1, 100, 3), device=cuda),
                              torch.ones((1, 100), dtype=torch.bool, device=cuda),
                              torch.ones((1, 100), device=cuda), 0.5)
+    x = torch.zeros((1, 100, 3), device=cuda)
+    ok = torch.ones((1, 100), dtype=torch.bool, device=cuda)
+    for k in (0, exact_knn.KERNEL_MAX_K + 1):
+        with pytest.raises(ValueError):
+            exact_knn.knn_mean_distances_exact(x, ok, k)
+    with pytest.raises(ValueError):
+        exact_knn.knn_mean_distances_exact(x.double(), ok, 10)
+    with pytest.raises(ValueError):
+        exact_knn.knn_mean_distances_exact(x, ok[:, :99], 10)
 
 
 def test_frame_program_on_the_card_matches_the_cpu(cuda):
@@ -122,9 +162,72 @@ def test_frame_program_on_the_card_matches_the_cpu(cuda):
     torch.manual_seed(0)
     pipe = pipeline.SemanticDepthPipeline(
         tiny, FCN8s(width_mult=0.0625, fc_channels=32), Monodepth(width_mult=0.0625))
-    counters = (knn_grid.knn_mean_distances_grid, mad.mad_keep_mask, radius.radius_counts)
-    for fn in counters:
+    for fn in _COUNTERS:
         fn.launches = 0
     out = pipe.process_batch(scene_pool(2, 384, 768, seed=5)[0], disparity_mult=100.0)
-    assert [fn.launches for fn in counters] == [1, 4, 1]
+    assert [fn.launches for fn in _COUNTERS] == [1, 4, 1, 0]
     assert out.disparity.device.type == "cuda" and out.disparity.shape == (2, 128, 256)
+
+
+_COUNTERS = (knn_grid.knn_mean_distances_grid, mad.mad_keep_mask, radius.radius_counts,
+             exact_knn.knn_mean_distances_exact)
+
+
+def test_exact_mode_on_the_card_matches_the_cpu(cuda):
+    """stat_mode='exact': the geometry tail on the card against the CPU on
+    analytic scenes; process_batch launches K1 0, K2 4, K3 1, K4 1 times;
+    process_frame_staged equals process_frame (K2 five times: the fence
+    chain's two x cuts go separately)."""
+    imgs, labels, disp_norm = scene_pool(2, 256, 512, seed=0)[:3]
+    args = [torch.from_numpy(a) for a in (
+        imgs.astype(np.float32), labels == 7, labels == 13, disp_norm * np.float32(2048.0))]
+    base = config.munich_pipeline_config()
+    cfg = dataclasses.replace(base, road=dataclasses.replace(base.road, stat_mode="exact"))
+    cam, _ = pipeline._scaled_camera(cfg, cfg.camera.focal)
+    outs = {}
+    for dev in ("cpu", cuda):
+        pipe = pipeline.SemanticDepthPipeline(
+            cfg, FCN8s(width_mult=0.0625, fc_channels=32), Monodepth(width_mult=0.0625),
+            device=dev)
+        with torch.inference_mode():
+            outs[str(dev)] = pipe._batch_geometry(*[a.to(dev) for a in args], cam)
+    cpu, gpu = outs["cpu"], outs[str(cuda)]
+    for f in ("dist_rw", "dist_f2f"):
+        np.testing.assert_allclose(getattr(gpu, f).cpu().numpy(), getattr(cpu, f).numpy(),
+                                   rtol=0, atol=1e-3, equal_nan=True)
+
+    tiny = config.munich_pipeline_config(
+        input_height=128, input_width=256,
+        road=dataclasses.replace(cfg.road, neighbor_capacity=2048))
+    torch.manual_seed(0)
+    pipe = pipeline.SemanticDepthPipeline(
+        tiny, FCN8s(width_mult=0.0625, fc_channels=32), Monodepth(width_mult=0.0625))
+    frames = scene_pool(2, 384, 768, seed=5)[0]
+    for fn in _COUNTERS:
+        fn.launches = 0
+    pipe.process_batch(frames, disparity_mult=300.0)
+    assert [fn.launches for fn in _COUNTERS] == [0, 4, 1, 1]
+    fused = pipe.process_frame(frames[0], disparity_mult=300.0)
+    pipe.process_frame_staged(frames[0], disparity_mult=300.0)  # the warm-up run
+    for fn in _COUNTERS:
+        fn.launches = 0
+    staged, times = pipe.process_frame_staged(frames[0], disparity_mult=300.0)
+    assert [fn.launches for fn in _COUNTERS] == [0, 5, 1, 1]
+    assert set(times) == {"read", "semantic", "disparity", "to3D", "road", "rw", "fences", "f2f"}
+    for name in ("dist_rw", "dist_f2f", "disparity", "road_plane"):
+        a, b = getattr(staged, name), getattr(fused, name)
+        assert a.device.type == "cuda" and torch.equal(a.nan_to_num(), b.nan_to_num()), name
+    assert torch.equal(staged.road_cloud.valid, fused.road_cloud.valid)
+
+
+def test_filter_ply_on_the_card_writes_what_the_cpu_writes(cuda, tmp_path):
+    rng = np.random.default_rng(1)
+    pts = np.concatenate([rng.normal(size=(3000, 3)) * 0.3, rng.uniform(-40, 40, size=(30, 3))])
+    src = PlyCloud(pts, rng.integers(0, 256, size=(3030, 3)), str(tmp_path / "noisy")).save()
+    kw = dict(nb_neighbors=10, std_ratio=0.5, nb_points=20, radius=0.3)
+    before = exact_knn.knn_mean_distances_exact.launches
+    got = outlier_removal.filter_ply(src, str(tmp_path / "card.ply"), **kw)
+    assert exact_knn.knn_mean_distances_exact.launches == before + 1
+    want = outlier_removal.filter_ply(src, str(tmp_path / "cpu.ply"), device="cpu", **kw)
+    with open(got, "rb") as a, open(want, "rb") as b:
+        assert a.read() == b.read()

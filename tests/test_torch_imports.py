@@ -40,7 +40,8 @@ def test_importing_the_port_loads_no_jax_package_module():
     code = (
         "import json, sys; import semantic_depth_tpu_torch, semantic_depth_tpu_torch.pipeline, "
         "semantic_depth_tpu_torch.ops.neighbors, semantic_depth_tpu_torch.models.from_flax, "
-        "semantic_depth_tpu_torch.utils.bench_scenes; "
+        "semantic_depth_tpu_torch.utils.bench_scenes, semantic_depth_tpu_torch.ops.exact_knn, "
+        "semantic_depth_tpu_torch.io.ply, semantic_depth_tpu_torch.utils.outlier_removal; "
         "print(json.dumps(sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('semantic_depth_tpu', 'flax', 'optax'))))"
     )

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's frame program on one GPU.
 
-    python3 tools/profile_torch_port.py [--iters 10] [--json out.json]
+    python3 tools/profile_torch_port.py [--iters 10] [--stat_mode grid|exact] [--json out.json]
 
 Full width: FCN-8s/VGG16 + monodepth-vgg with seeded random weights, 8
 rendered 1024x2048 uint8 frames, 256x512 networks, float32 and bfloat16.
@@ -18,12 +18,16 @@ For each compute dtype it reports
   idle share of the profiled wall time (the profiler's own host overhead
   inflates it).
 
-``--json`` writes everything to one file. Needs a CUDA card.
+``--stat_mode exact`` runs the road chain's statistical filter through the
+exact kNN kernel (K4) instead of the windowed one (K1), as
+``road.stat_mode="exact"`` does. ``--json`` writes everything to one file.
+Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -36,14 +40,14 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-_PORT_KERNELS = ("knn_grid_kernel", "mad_keep_kernel", "radius_kernel")
+_PORT_KERNELS = ("knn_grid_kernel", "mad_keep_kernel", "radius_kernel", "exact_knn_kernel")
 _CONV_MARKS = ("conv", "cudnn", "xmma", "implicit", "fft", "dse::", "pointwise_mult_and_sum")
 
 
 def _group(name: str) -> str:
     low = name.lower()
     if any(k in name for k in _PORT_KERNELS):
-        return "port kernels (knn_grid, mad, radius)"
+        return "port kernels (knn_grid, mad, radius, exact_knn)"
     if any(k in low for k in _CONV_MARKS):
         return "convolutions (cuDNN)"
     if "gemm" in low or "cutlass" in low:
@@ -94,12 +98,13 @@ def _profile(torch, fn):
     )
 
 
-def run_dtype(torch, dtype_name, frames, scenes, iters):
+def run_dtype(torch, dtype_name, frames, scenes, iters, stat_mode):
     from semantic_depth_tpu_torch import config, pipeline
     from semantic_depth_tpu_torch.models import FCN8s, Monodepth
 
     dtype = torch.bfloat16 if dtype_name == "bfloat16" else torch.float32
     cfg = config.munich_pipeline_config(compute_dtype=dtype_name)
+    cfg = dataclasses.replace(cfg, road=dataclasses.replace(cfg.road, stat_mode=stat_mode))
     torch.manual_seed(0)
     with torch.device("cuda"):
         fcn = FCN8s(num_classes=cfg.segmenter.num_classes, compute_dtype=dtype)
@@ -140,6 +145,8 @@ def run_dtype(torch, dtype_name, frames, scenes, iters):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--stat_mode", choices=("grid", "exact"), default="grid",
+                    help="the road chain's statistical filter (road.stat_mode)")
     ap.add_argument("--json", help="write the full result to this file")
     args = ap.parse_args()
     import torch
@@ -158,11 +165,12 @@ def main() -> int:
     imgs, labels, disp_norm = scene_pool(8, 256, 512, seed=0)[:3]
     scenes = tuple(torch.from_numpy(a).cuda() for a in (
         imgs.astype(np.float32), labels == 7, labels == 13, disp_norm * np.float32(2048.0)))
-    result = dict(card=card, batch=8, frames="1024x2048 uint8", network_input="256x512")
+    result = dict(card=card, batch=8, frames="1024x2048 uint8", network_input="256x512",
+                  stat_mode=args.stat_mode)
     for dtype_name in ("float32", "bfloat16"):
-        r = run_dtype(torch, dtype_name, frames, scenes, args.iters)
+        r = run_dtype(torch, dtype_name, frames, scenes, args.iters, args.stat_mode)
         result[dtype_name] = r
-        print(f"[{dtype_name}] process_batch wall {r['wall_ms_process_batch']:.2f} ms "
+        print(f"[{dtype_name}, stat_mode {args.stat_mode}] process_batch wall {r['wall_ms_process_batch']:.2f} ms "
               f"(median of {args.iters})", flush=True)
         for stage, ms in r["stage_device_ms"].items():
             print(f"    stage {stage:30s} {ms:9.3f} ms", flush=True)
