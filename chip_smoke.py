@@ -10,9 +10,11 @@ either is missing or any check fails. Phases:
 2. build: the hand-written kernels of ``csrc/`` (nvcc, sm_90a), with ptxas
    register and shared-memory lines;
 3. kernels against their plain PyTorch versions on the card, at the paths'
-   shapes: knn_grid (8, 256, 512) within rtol 1e-5 / atol 1e-6, mad (40
-   rows of 131072) and radius (8, 16384) bit-equal, radius with the z-range
-   tile skip on and off; exact_knn bit-equal (+inf pattern included) at
+   shapes: knn_grid (8, 256, 512) within rtol 1e-5 / atol 1e-6, mad (the
+   frame program's recorded launches, 40 rows of 131072 and a streamed row
+   of 2^21) and radius (8, 16384) bit-equal, radius with the z-range tile
+   skip on and off, and with non-dyadic weights the same on three runs and
+   within rtol 1e-4 of the plain version; exact_knn bit-equal (+inf pattern included) at
    (8, 16384) (the exact mode's compacted road clouds), (1, 131072) (a whole
    scene cloud with outliers) and on edge frames (duplicates, fewer than k
    valid points, no valid point, nan garbage, a ragged capacity); median
@@ -80,23 +82,6 @@ def _run(cmd):
     return out.stdout.strip()
 
 
-def cuda_ms(fn, iters=20, warmup=3):
-    """Median milliseconds of ``fn`` on the card (CUDA events, after warm-up)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def bound_ms(n_bytes, n_ops):
     t_bytes = n_bytes / _HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / _FP32_FLOPS * 1e3
@@ -153,6 +138,7 @@ def scene_batch(n, h, w, seed, dev):
 def phase_kernels(dev, scenes):
     from semantic_depth_tpu_torch import camera, config
     from semantic_depth_tpu_torch.ops import knn_grid, mad, pcl, radius
+    from semantic_depth_tpu_torch.utils.probes import cuda_ms, cuda_ms_stream
 
     cfg = config.munich_pipeline_config()
     rows = {}
@@ -197,8 +183,28 @@ def phase_kernels(dev, scenes):
         shape="points (8, 256, 512, 3) f32, valid (8, 256, 512), k=10, window (5, 21)",
     )
 
-    # --- K2: MAD keep mask, 40 rows of 131072 -----------------------------
+    # --- K2: MAD keep mask ------------------------------------------------
     log("[phase 3] K2 mad")
+    main_mad, main_radius = record_main_path(dev, scenes)
+    check([a[0].shape[0] for a in main_mad] == [8, 8, 8, 16]
+          and all(a[0].shape[1] == 131072 for a in main_mad),
+          "K2 main-path launches recorded: 8, 8, 8 and 16 rows of 131072")
+    launches = []
+    for values, valids, thr in main_mad:
+        thr_rows = mad.threshold_rows(thr, values.shape[0], dev)
+        got = mad.mad_keep_mask(values, valids, thr)
+        want = mad.mad_keep_mask_plain(values, valids, thr_rows)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K2 main-path launch of {values.shape[0]} rows, "
+              f"thresholds {thr}: bit-equal ({int(want.sum())} kept)")
+        out = torch.empty_like(valids)
+        launches.append(dict(
+            rows=values.shape[0], thresholds=thr,
+            ms=cuda_ms(lambda: mad.mad_keep_mask(values, valids, thr)),
+            kernel_ms=cuda_ms_stream(lambda: mad._launch(values, valids, thr, out)),
+            plain_ms=cuda_ms(lambda: mad.mad_keep_mask_plain(values, valids, thr_rows), iters=5)))
+        log("  K2 launch of {rows} rows: wrapper {ms:.4f} ms, kernel {kernel_ms:.4f} ms, "
+            "plain {plain_ms:.4f} ms".format(**launches[-1]))
     n = 131072
     vals, oks = [], []
     scene_pts = camera.reproject_disparity(scenes["disp"], cfg.camera).reshape(8, n, 3)
@@ -232,20 +238,34 @@ def phase_kernels(dev, scenes):
     values = torch.stack(vals).contiguous()
     valids = torch.stack(oks).contiguous()
     thr = torch.tensor([15.0, 2.0, 5.0, 1.0] * 8 + [2.0] * 8, device=dev)
-    check(values.shape == (40, n), "K2 input is 40 rows of 131072")
+    check(values.shape == (40, n), "K2 check input is 40 rows of 131072")
     got = mad.mad_keep_mask(values, valids, thr)
     want = mad.mad_keep_mask_plain(values, valids, thr)
     torch.cuda.synchronize()
-    check(torch.equal(got, want), f"K2 keep masks bit-equal ({int(want.sum())} kept)")
-    t_bound, by = bound_ms(40 * n * (4 + 1 + 1), 40 * n * 37.0)
+    check(torch.equal(got, want), f"K2 40 rows bit-equal ({int(want.sum())} kept)")
+    ms_40 = cuda_ms(lambda: mad.mad_keep_mask(values, valids, thr))
+    # one row of 2^21 (the native grid's planes) streams from global memory
+    big = torch.cat([scene_pts[:, :, 1].reshape(-1), base.repeat(8)]).reshape(1, -1).contiguous()
+    big_ok = torch.cat([scenes["road"].reshape(-1), rnd(0.3).repeat(8)]).reshape(1, -1).contiguous()
+    big_thr = torch.full((1,), 15.0, device=dev)
+    got = mad.mad_keep_mask(big, big_ok, 15.0)
+    torch.cuda.synchronize()
+    check(big.shape == (1, 1 << 21) and torch.equal(
+        got, mad.mad_keep_mask_plain(big, big_ok, big_thr)), "K2 streamed row of 2^21 bit-equal")
+    ms_big = cuda_ms(lambda: mad.mad_keep_mask(big, big_ok, 15.0), iters=10)
+    t_bound, by = bound_ms(sum(a[0].numel() for a in main_mad) * (4 + 1 + 1),
+                           sum(a[0].numel() for a in main_mad) * 37.0)
     rows["mad"] = dict(
         name="mad", route="cuda", source="semantic_depth_tpu_torch/csrc/mad.cu",
         replaces="semantic_depth_tpu/ops/pallas_mad.py:79", max_abs_err=0.0,
-        ms=cuda_ms(lambda: mad.mad_keep_mask(values, valids, thr)),
-        plain_ms=cuda_ms(lambda: mad.mad_keep_mask_plain(values, valids, thr), iters=10),
+        ms=sum(x["ms"] for x in launches), kernel_ms=sum(x["kernel_ms"] for x in launches),
+        plain_ms=sum(x["plain_ms"] for x in launches),
         bound_ms=t_bound, bound_by=by, library_ms=None, library_note=_NO_LIBRARY,
-        shape="values (40, 131072) f32, valid (40, 131072), thresholds (40,)",
+        shape="the frame program's four launches: 8, 8, 8 and 16 rows of 131072 (sums)",
+        launches_timed=launches, ms_40_rows=ms_40,
+        ms_streamed_row_2_21=ms_big,
     )
+    log(f"  K2 40 rows {ms_40:.4f} ms; streamed row of 2^21 {ms_big:.4f} ms")
 
     # --- K3: weighted radius counts at (8, 16384) -------------------------
     log("[phase 3] K3 radius")
@@ -256,39 +276,103 @@ def phase_kernels(dev, scenes):
     packed, weights = pcl.compact_slab_aware(
         cloud, cfg.road.neighbor_capacity, 2, -(depth_rw + cfg.rw_slab_halfwidth),
         -(depth_rw - cfg.rw_slab_halfwidth))
-    xyz = packed.xyz.contiguous()
-    pv = packed.valid.contiguous()
-    wts = weights.contiguous()
-    check(xyz.shape == (8, 16384, 3), "K3 input is (8, 16384) compacted road clouds")
     r = cfg.road.radius
-    got = radius.radius_counts(xyz, pv, wts, r)
-    got_noskip = radius.radius_counts(xyz, pv, wts, r, skip=False)
-    want = radius.radius_counts_plain(xyz, pv, wts, r)
+    xyz, pv, wts = main_radius[:3]
+    check(xyz.shape == (8, 16384, 3) and main_radius[3] == r,
+          f"K3 main-path input recorded: (8, 16384), {pv.sum(-1).tolist()} valid")
+    empty = pv.clone()
+    empty[3] = False  # a frame with no valid row
+    for name, args in (("keep_beyond-only clouds", (packed.xyz.contiguous(), packed.valid,
+                                                    weights.contiguous())),
+                       ("main-path clouds", (xyz, pv, wts)),
+                       ("main-path clouds, frame 3 empty", (xyz, empty, wts))):
+        want = radius.radius_counts_plain(*args, r)
+        got = radius.radius_counts(*args, r)
+        got_noskip = radius.radius_counts(*args, r, skip=False)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K3 {name}: counts bit-equal to the plain version")
+        check(torch.equal(got_noskip, want), f"K3 {name}: bit-equal with the z-range skip off")
+    scratch = torch.empty(radius.scratch_words(8, 16384), device=dev)
+    out = torch.empty((8, 16384), device=dev)
+    radius._launch(xyz, pv, wts, r, True, scratch, out)
+    ranges = scratch[:8 * 2 * (16384 // radius.SUBTILE)].view(8, 2, -1)
+    check(torch.equal(ranges, radius.subtile_ranges(xyz, pv, r)),
+          "K3 preparation kernel's subtile ranges bit-equal to subtile_ranges")
+    # weights that are not dyadic (the frame program's at 384x768, px_scale
+    # 2.25): the split sums add in a fixed order, so every run agrees
+    w_nd = wts / torch.tensor(2.25, device=dev)
+    runs = [radius.radius_counts(xyz, pv, w_nd, r) for _ in range(3)]
+    want = radius.radius_counts_plain(xyz, pv, w_nd, r)
     torch.cuda.synchronize()
-    check(torch.equal(got, want), "K3 counts bit-equal to the plain version (skip on)")
-    check(torch.equal(got_noskip, want), "K3 counts bit-equal with the tile skip off")
-    # pairs this data needs: (query tile, candidate tile) pairs the skip keeps
-    q, _, _, bz = radius._prepare(xyz, pv, wts, r, True)
-    qz = q[..., 2].reshape(8, -1, 128)
-    nt = qz.shape[1]
-    lo, hi = bz[:, :nt], bz[:, nt:]
-    keep = (lo[:, None, :] <= qz.amax(-1)[:, :, None]) & (hi[:, None, :] >= qz.amin(-1)[:, :, None])
-    pairs = float(keep.sum()) * 128 * 128
+    err_nd = float((runs[0] - want).abs().max())
+    check(all(torch.equal(x, runs[0]) for x in runs)
+          and torch.allclose(runs[0], want, rtol=1e-4, atol=0),
+          f"K3 non-dyadic weights: three runs equal, within rtol 1e-4 of the plain version's "
+          f"blockwise sums (max abs err {err_nd:.3e}, bit-equal {torch.equal(runs[0], want)})")
+    pairs, pairs_block = radius_pairs(xyz, pv, r)
     t_bound, by = bound_ms(8 * 16384 * (12 + 1 + 4 + 4), pairs * 10.0)
     rows["radius"] = dict(
         name="radius", route="cuda", source="semantic_depth_tpu_torch/csrc/radius.cu",
         replaces="semantic_depth_tpu/ops/pallas_exact_knn.py:93", max_abs_err=0.0,
         ms=cuda_ms(lambda: radius.radius_counts(xyz, pv, wts, r)),
+        kernel_ms=cuda_ms_stream(lambda: radius._launch(xyz, pv, wts, r, True, scratch, out)),
+        max_abs_err_non_dyadic=err_nd,
         ms_noskip=cuda_ms(lambda: radius.radius_counts(xyz, pv, wts, r, skip=False), iters=5),
         plain_ms=cuda_ms(lambda: radius.radius_counts_plain(xyz, pv, wts, r), iters=3, warmup=1),
         bound_ms=t_bound, bound_by=by, library_ms=None, library_note=_NO_LIBRARY,
-        pairs_needed=pairs, pairs_all=8 * 16384.0 ** 2,
-        shape="xyz (8, 16384, 3) f32, valid (8, 16384), weights (8, 16384), r=0.5",
+        pairs_needed=pairs, bound_ms_block_rule=bound_ms(0, pairs_block * 10.0)[0],
+        pairs_block_rule=pairs_block, pairs_all=8 * 16384.0 ** 2,
+        shape="the frame program's launch: xyz (8, 16384, 3) f32, valid, weights, r=0.5",
     )
     for row in rows.values():
-        log(f"  {row['name']}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        log(f"  {row['name']}: wrapper {row['ms']:.4f} ms, kernel {row.get('kernel_ms', row['ms']):.4f} "
+            f"ms, plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     return rows
+
+
+def record_main_path(dev, scenes):
+    """The arguments of every MAD and radius call that one grid-mode
+    geometry tail makes on the 8 analytic scenes: the frame program's own
+    launches (four MAD calls, one radius call)."""
+    from semantic_depth_tpu_torch import config, pipeline
+    from semantic_depth_tpu_torch.models import FCN8s, Monodepth
+    from semantic_depth_tpu_torch.utils.probes import recording_kernel_calls
+
+    cfg = config.munich_pipeline_config()
+    pipe = pipeline.SemanticDepthPipeline(
+        cfg, FCN8s(width_mult=0.0625, fc_channels=32), Monodepth(width_mult=0.0625), device=dev)
+    cam, _ = pipeline._scaled_camera(cfg, cfg.camera.focal)
+    with recording_kernel_calls() as calls:
+        pipe._batch_geometry(*[scenes[k] for k in ("small", "road", "fence", "disp")], cam)
+    return calls["mad"], calls["radius"][0]
+
+
+def radius_pairs(xyz, valid, r):
+    """The pairs K3's work needs on these clouds: (valid query, valid
+    candidate) pairs with |dz| within the widened radius
+    sqrt(r^2 + 4e-6 max|p|^2). Beside them, the pairs that the first
+    design's skip kept: (128-query block, 128-candidate tile) pairs whose
+    z-ranges meet, the rows of invalid queries filled with the frame's first
+    valid point."""
+    x, y, z = xyz.unbind(-1)
+    sq = x * x + y * y + z * z
+    zthr = torch.sqrt(float(r) ** 2 + 4e-6 * torch.where(valid, sq, 0.0).amax(-1))
+    needed = 0
+    for f in range(valid.shape[0]):
+        zs = torch.sort(z[f][valid[f]]).values
+        lo = torch.searchsorted(zs, zs - zthr[f])
+        hi = torch.searchsorted(zs, zs + zthr[f], right=True)
+        needed += int((hi - lo).sum())
+    b, c = valid.shape
+    fill = z.gather(1, valid.int().argmax(-1)[:, None])
+    qz = torch.where(valid, z, fill).reshape(b, -1, 128)
+    vb = valid.reshape(b, -1, 128)
+    zc = z.reshape(b, -1, 128)
+    lo = torch.where(vb, zc, float("inf")).amin(-1) - zthr[:, None]
+    hi = torch.where(vb, zc, float("-inf")).amax(-1) + zthr[:, None]
+    keep = ((lo[:, None, :] <= qz.amax(-1)[:, :, None])
+            & (hi[:, None, :] >= qz.amin(-1)[:, :, None]))
+    return float(needed), float(keep.sum()) * 128 * 128
 
 
 def exact_road_clouds(scenes):
@@ -361,6 +445,7 @@ def exact_knn_bound(xyz, valid):
 
 def phase_exact_knn(dev, scenes):
     from semantic_depth_tpu_torch.ops import exact_knn
+    from semantic_depth_tpu_torch.utils.probes import cuda_ms
 
     log("[phase 3] K4 exact_knn")
     knn = exact_knn.knn_mean_distances_exact
@@ -415,6 +500,7 @@ def phase_exact_knn(dev, scenes):
 def phase_geometry(dev, scenes, counters, stat_mode="grid"):
     from semantic_depth_tpu_torch import config, pipeline
     from semantic_depth_tpu_torch.models import FCN8s, Monodepth
+    from semantic_depth_tpu_torch.utils.probes import cuda_ms, sync_debug
 
     log(f"[phase 4] geometry tail, stat_mode {stat_mode!r}")
     cfg = exact_config() if stat_mode == "exact" else config.munich_pipeline_config()
@@ -433,6 +519,14 @@ def phase_geometry(dev, scenes, counters, stat_mode="grid"):
         out_gpu = pipe_gpu._batch_geometry(*args, cam)
         torch.cuda.synchronize()
         counts = read_counts(counters)
+        try:
+            with sync_debug("error"):
+                pipe_gpu._batch_geometry(*args, cam)
+                torch.cuda.synchronize()
+        except RuntimeError as e:
+            raise SmokeFailure(f"a host sync in the MAD or radius filters: {e}") from e
+        check(True, f"{stat_mode} geometry tail: no host sync in the MAD and radius filters "
+              "(torch.cuda.set_sync_debug_mode('error'))")
         geom_ms = cuda_ms(lambda: pipe_gpu._batch_geometry(*args, cam), iters=5, warmup=1)
         log(f"  cuda geometry tail: {geom_ms:.3f} ms per batch of 8 (CUDA events, median of 5)")
         t0 = time.time()
@@ -570,6 +664,7 @@ def phase_outlier_removal(dev, cloud):
     from semantic_depth_tpu_torch.io.ply import PlyCloud, read_ply
     from semantic_depth_tpu_torch.ops import exact_knn, neighbors, radius
     from semantic_depth_tpu_torch.utils.outlier_removal import filter_ply
+    from semantic_depth_tpu_torch.utils.probes import cuda_ms
 
     log("[phase 6] outlier_removal entry point on the (1, 131072) scene cloud")
     repo = os.path.dirname(os.path.abspath(__file__))

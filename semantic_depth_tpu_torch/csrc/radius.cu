@@ -1,113 +1,268 @@
 // Weighted radius neighbour counts over a compacted cloud.
 //
 // Replaces semantic_depth_tpu/ops/pallas_exact_knn.py:_radius_kernel, called
-// by radius_counts_pallas.
+// by radius_counts_pallas (the wrapper's preparation, :162-202, included).
 //
-// For each query q of frame b: sum of w[c] over candidates c of the same
-// frame with d2 < r2 (strict), d2 = max(|q|^2 + |c|^2 - 2 q.c, 0) in float32.
-// The wrapper (ops/radius.py) prepares the inputs exactly as the TPU
-// wrapper does: invalid candidates are zeroed with weight 0, invalid query
-// rows hold the frame's first valid point, and each candidate tile's valid-z
-// range comes pre-widened by the radius plus the Gram identity's float32
-// error bound (bz: lows then highs). A tile whose range misses the block's
-// query z-range provably holds no neighbour and is skipped.
+// For each valid query q of frame b: sum of w[c] over the valid candidates c
+// of the same frame with d2 < r2 (strict), d2 = max(|q|^2 + |c|^2 - 2 q.c, 0)
+// in float32; 0 on invalid rows.
 //
-// Design: grid (C/128, B), one thread per query. Candidate tiles of 128
-// x, y, z, w (and |c|^2, computed at staging) go through shared memory; every
-// thread reads the same candidate word (a broadcast). Products and sums use
-// __fmul_rn/__fadd_rn/__fsub_rn in the plain version's order, so no FMA
-// contraction changes a rounding: counts are bit-equal to the plain
-// version's. The weights are integers or dyadic fractions, so the float32
-// sums do not depend on their order.
+// Bound on this card: operations, about 10 float32 operations a (valid
+// query, valid candidate) pair within the widened radius in z, against 20
+// bytes a point read once and 4 written.
 //
-// Bound on this card: operations (about 10 float32 operations per pair,
-// against 32 bytes per point); the z-range skip is what removes most of the
-// pairs on a road cloud, whose compacted rows keep image order.
+// Design: two launches and nothing else on the torch side.
+// 1. radius_prep_kernel, one block a frame: the largest |p|^2 over valid
+//    rows, then each 32-candidate subtile's valid-z range widened by
+//    sqrt(r^2 + 4e-6 max|p|^2), the radius plus the Gram identity's float32
+//    error bound, so a skipped subtile provably holds no neighbour (lows,
+//    then highs; an empty subtile gets (+inf, -inf) and is never scanned).
+//    nan coordinates are left out of the ranges: a nan pair never counts.
+//    It also zeroes the frame's tickets (below).
+// 2. radius_kernel, grid (C / (128 kQ), B, S), 4 warps, each thread kQ = 2
+//    consecutive queries, S = min(16, C / 128) splits (of 1, 2 and 4 queries
+//    a thread and 1 to 32 splits, the fastest on the frame program's clouds:
+//    PERF.md). It reads xyz, valid and the weights itself. A block with no
+//    valid query writes zeros (split 0) and leaves, so the half of the
+//    blocks past a compacted cloud's valid rows does no work. Split s of S
+//    takes the candidate tiles j with j % S == s, which spreads the far
+//    field's long scans over S blocks. Each warp takes the z-range of its
+//    valid queries only and marks, 32 candidate tiles at a time, which
+//    subtiles it may reach; a 128-candidate tile is staged in shared memory
+//    (x, y, z, |c|^2 as one float4, zeros and weight 0 where invalid) only
+//    if one warp needs one of its subtiles, and each warp scans only the
+//    subtiles it marked: a warp-uniform branch. Each candidate read from
+//    shared memory feeds both of a thread's queries. skip = 0 marks every
+//    subtile (validation).
+//    Each split writes its sums to its own slice of a scratch buffer and
+//    takes a ticket; the split that takes the last ticket of its query
+//    block adds the S slices in the order 0..S-1. So the sums do not depend
+//    on which split ends first, whatever the weights (the frame program's
+//    density weights divide by the pixel scale, which is not dyadic at
+//    every input size).
+// Products and sums use __fmul_rn/__fadd_rn/__fsub_rn in the plain
+// version's order, so no FMA contraction changes a rounding, and the count
+// of every pair is the plain version's. Where the weighted sums are exact
+// in float32 (integer or dyadic weights, as on the frame program's clouds
+// at 256x512) the counts are bit-equal to the plain version's; otherwise
+// they differ from its blockwise sums only in rounding, the same on every
+// run.
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTile = 128;  // queries per block == candidates per tile
+constexpr int kSub = 32;    // candidates per subtile (one z-range)
+constexpr int kTile = 128;  // candidates per staged tile: 4 subtiles
+constexpr int kSubs = kTile / kSub;
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kQ = 2;  // consecutive queries of a thread
+constexpr int kBlockQueries = kThreads * kQ;
+constexpr int kMaxSplits = 16;
+constexpr int kPrepThreads = 1024;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float sq3(float x, float y, float z) {
   return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
 }
 
-__global__ void __launch_bounds__(kTile) radius_kernel(
-    const float* __restrict__ q_all, const float* __restrict__ c_all,
+__global__ void __launch_bounds__(kPrepThreads) radius_prep_kernel(
+    const float* __restrict__ xyz_all, const uint8_t* __restrict__ valid_all,
+    float* __restrict__ bz_all, int* __restrict__ tickets_all, int C, float r2) {
+  __shared__ float red[kPrepThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t frame = static_cast<size_t>(blockIdx.x) * C;
+  const float* p = xyz_all + frame * 3;
+  const uint8_t* v = valid_all + frame;
+  const int n_sub = C / kSub;
+  float* lo = bz_all + static_cast<size_t>(blockIdx.x) * 2 * n_sub;
+  float* hi = lo + n_sub;
+  const int n_blocks = (C + kBlockQueries - 1) / kBlockQueries;
+  for (int i = threadIdx.x; i < n_blocks; i += kPrepThreads) tickets_all[blockIdx.x * n_blocks + i] = 0;
+
+  float m = 0.f;  // fmaxf leaves a nan |p|^2 out
+#pragma unroll 8
+  for (int i = threadIdx.x; i < C; i += kPrepThreads) {
+    const float s = sq3(p[3 * i], p[3 * i + 1], p[3 * i + 2]);
+    m = v[i] ? fmaxf(m, s) : m;
+  }
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, o));
+  if (lane == 0) red[warp] = m;
+  __syncthreads();
+  m = red[0];
+#pragma unroll
+  for (int w = 1; w < kPrepThreads / 32; ++w) m = fmaxf(m, red[w]);
+  const float zthr = __fsqrt_rn(__fadd_rn(r2, __fmul_rn(4e-6f, m)));
+
+#pragma unroll 4
+  for (int t = warp; t < n_sub; t += kPrepThreads / 32) {
+    const int i = t * kSub + lane;
+    const float z = p[3 * i + 2];
+    const bool ok = v[i] && !isnan(z);
+    float zmin = ok ? z : CUDART_INF_F, zmax = ok ? z : -CUDART_INF_F;
+    for (int o = 16; o > 0; o >>= 1) {
+      zmin = fminf(zmin, __shfl_xor_sync(kFull, zmin, o));
+      zmax = fmaxf(zmax, __shfl_xor_sync(kFull, zmax, o));
+    }
+    if (lane == 0) {
+      lo[t] = __fsub_rn(zmin, zthr);
+      hi[t] = __fadd_rn(zmax, zthr);
+    }
+  }
+}
+
+// grid (ceil(C / (128 kQ)), B, splits): split s scans the tiles j with
+// j % splits == s. partial_all: (splits, B, C) sums of each split.
+__global__ void __launch_bounds__(kThreads) radius_kernel(
+    const float* __restrict__ xyz_all, const uint8_t* __restrict__ valid_all,
     const float* __restrict__ w_all, const float* __restrict__ bz_all,
-    float* __restrict__ out_all, int C, float r2) {
-  __shared__ float cx[kTile], cy[kTile], cz[kTile], cw[kTile], csq[kTile];
-  __shared__ float wmin[kTile / 32], wmax[kTile / 32];
+    float* __restrict__ partial_all, int* __restrict__ tickets_all, float* __restrict__ out_all,
+    int C, float r2, int skip) {
+  __shared__ float4 cand[kTile];  // x, y, z, |c|^2
+  __shared__ float cw[kTile];
+  __shared__ uint8_t need[kWarps][32];  // per warp, per tile of the chunk: subtile bits
+  __shared__ bool last;
 
-  const int b = blockIdx.y;
-  const int qi = blockIdx.x * kTile + threadIdx.x;
-  const size_t frame = static_cast<size_t>(b) * C;
-  const float* q = q_all + frame * 3;
-  const float* c = c_all + frame * 3;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t frame = static_cast<size_t>(blockIdx.y) * C;
+  const float* p = xyz_all + frame * 3;
+  const uint8_t* v = valid_all + frame;
   const float* w = w_all + frame;
-  const int n_tiles = C / kTile;
-  const float* bz_lo = bz_all + static_cast<size_t>(b) * 2 * n_tiles;
-  const float* bz_hi = bz_lo + n_tiles;
+  float* out = out_all + frame;
+  const int n_tiles = C / kTile, n_sub = C / kSub;
+  const float* bz_lo = bz_all + static_cast<size_t>(blockIdx.y) * 2 * n_sub;
+  const float* bz_hi = bz_lo + n_sub;
+  const int split = blockIdx.z, splits = gridDim.z;
+  const int my_tiles = (n_tiles - split + splits - 1) / splits;
 
-  const float qx = q[3 * qi + 0], qy = q[3 * qi + 1], qz = q[3 * qi + 2];
-  const float sqq = sq3(qx, qy, qz);
-
-  // the block's query z-range
-  float zmin = qz, zmax = qz;
+  const int q0 = blockIdx.x * kBlockQueries + threadIdx.x * kQ;
+  float qx[kQ], qy[kQ], qz[kQ], sqq[kQ], acc[kQ];
+  bool qv[kQ];
+  bool any = false;
+  float zmin = CUDART_INF_F, zmax = -CUDART_INF_F;  // over valid queries; fminf leaves a nan out
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    const int i = q0 + q;
+    qv[q] = i < C && v[i];
+    qx[q] = qv[q] ? p[3 * i] : 0.f;
+    qy[q] = qv[q] ? p[3 * i + 1] : 0.f;
+    qz[q] = qv[q] ? p[3 * i + 2] : 0.f;
+    sqq[q] = sq3(qx[q], qy[q], qz[q]);
+    acc[q] = 0.f;
+    if (qv[q]) {
+      any = true;
+      zmin = fminf(zmin, qz[q]);
+      zmax = fmaxf(zmax, qz[q]);
+    }
+  }
+  if (!__syncthreads_or(any)) {  // no valid query in the block: its rows count 0
+#pragma unroll
+    for (int q = 0; q < kQ; ++q)
+      if (split == 0 && q0 + q < C) out[q0 + q] = 0.f;
+    return;
+  }
   for (int o = 16; o > 0; o >>= 1) {
     zmin = fminf(zmin, __shfl_xor_sync(kFull, zmin, o));
     zmax = fmaxf(zmax, __shfl_xor_sync(kFull, zmax, o));
   }
-  if ((threadIdx.x & 31) == 0) {
-    wmin[threadIdx.x >> 5] = zmin;
-    wmax[threadIdx.x >> 5] = zmax;
-  }
-  __syncthreads();
-  zmin = wmin[0];
-  zmax = wmax[0];
-#pragma unroll
-  for (int i = 1; i < kTile / 32; ++i) {
-    zmin = fminf(zmin, wmin[i]);
-    zmax = fmaxf(zmax, wmax[i]);
-  }
 
-  float acc = 0.f;
-  for (int j = 0; j < n_tiles; ++j) {
-    if (!(bz_lo[j] <= zmax && bz_hi[j] >= zmin)) continue;  // same for the whole block
-    __syncthreads();  // the previous tile is consumed
-    const int ci = j * kTile + threadIdx.x;
-    const float x = c[3 * ci + 0], y = c[3 * ci + 1], z = c[3 * ci + 2];
-    cx[threadIdx.x] = x;
-    cy[threadIdx.x] = y;
-    cz[threadIdx.x] = z;
-    cw[threadIdx.x] = w[ci];
-    csq[threadIdx.x] = sq3(x, y, z);
-    __syncthreads();
-#pragma unroll 8
-    for (int t = 0; t < kTile; ++t) {
-      const float cross =
-          __fadd_rn(__fadd_rn(__fmul_rn(qx, cx[t]), __fmul_rn(qy, cy[t])), __fmul_rn(qz, cz[t]));
-      float d2 = __fsub_rn(__fadd_rn(sqq, csq[t]), __fmul_rn(2.f, cross));
-      d2 = d2 < 0.f ? 0.f : d2;  // nan stays nan, like torch.clamp_min
-      if (d2 < r2) acc = __fadd_rn(acc, cw[t]);
+  for (int c0 = 0; c0 < my_tiles; c0 += 32) {
+    // lane l marks the subtiles of this split's tile c0 + l that its warp may reach
+    const int j = split + splits * (c0 + lane);
+    uint32_t bits = 0;
+    if (c0 + lane < my_tiles) {
+#pragma unroll
+      for (int s = 0; s < kSubs; ++s) {
+        const int t = j * kSubs + s;
+        if (!skip || (bz_lo[t] <= zmax && bz_hi[t] >= zmin)) bits |= 1u << s;
+      }
     }
+    need[warp][lane] = static_cast<uint8_t>(bits);
+    __syncthreads();
+    const int cn = min(32, my_tiles - c0);
+    for (int cc = 0; cc < cn; ++cc) {
+      uint32_t block_bits = 0;
+#pragma unroll
+      for (int u = 0; u < kWarps; ++u) block_bits |= need[u][cc];
+      if (!block_bits) continue;  // the same in every thread
+      const int ci = (split + splits * (c0 + cc)) * kTile + threadIdx.x;
+      const bool ok = v[ci];
+      const float x = ok ? p[3 * ci] : 0.f, y = ok ? p[3 * ci + 1] : 0.f,
+                  z = ok ? p[3 * ci + 2] : 0.f;
+      cand[threadIdx.x] = make_float4(x, y, z, sq3(x, y, z));
+      cw[threadIdx.x] = ok ? w[ci] : 0.f;
+      __syncthreads();
+      const uint32_t mine = need[warp][cc];
+#pragma unroll
+      for (int s = 0; s < kSubs; ++s) {
+        if (!((mine >> s) & 1u)) continue;  // warp-uniform
+#pragma unroll 8
+        for (int t = s * kSub; t < (s + 1) * kSub; ++t) {
+          const float4 c = cand[t];
+          const float wt = cw[t];
+#pragma unroll
+          for (int q = 0; q < kQ; ++q) {
+            const float cross = __fadd_rn(__fadd_rn(__fmul_rn(qx[q], c.x), __fmul_rn(qy[q], c.y)),
+                                          __fmul_rn(qz[q], c.z));
+            float d2 = __fsub_rn(__fadd_rn(sqq[q], c.w), __fmul_rn(2.f, cross));
+            d2 = d2 < 0.f ? 0.f : d2;  // nan stays nan, like torch.clamp_min
+            if (d2 < r2) acc[q] = __fadd_rn(acc[q], wt);
+          }
+        }
+      }
+      __syncthreads();  // the tile is consumed
+    }
+    __syncthreads();  // need[] is rewritten by the next chunk
   }
-  out_all[frame + qi] = acc;
+  const size_t frames = gridDim.y;
+  float* part = partial_all + (split * frames + blockIdx.y) * C;
+#pragma unroll
+  for (int q = 0; q < kQ; ++q)
+    if (q0 + q < C) part[q0 + q] = acc[q];
+  __threadfence();  // this split's sums are visible before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(tickets_all + blockIdx.y * gridDim.x + blockIdx.x, 1) == splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the last split of the query block adds every split's sums in split order
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    const int i = q0 + q;
+    if (i >= C) continue;
+    float sum = 0.f;
+    for (int t = 0; t < splits; ++t)
+      sum = __fadd_rn(sum, __ldcg(partial_all + (t * frames + blockIdx.y) * C + i));
+    out[i] = qv[q] ? sum : 0.f;
+  }
 }
 
 }  // namespace
 
-extern "C" int sd_radius_counts(const void* queries, const void* cands, const void* weights,
-                                const void* bz, void* out, int B, int C, float r2,
+// scratch: float32 words, laid out as the subtile ranges (B, 2, C/32), the
+// splits' sums (S, B, C) and the tickets (B, ceil(C/256)) as int32, S =
+// min(16, C/128); skip = 0 scans every subtile.
+extern "C" int sd_radius_counts(const void* xyz, const void* valid, const void* weights,
+                                void* scratch, void* out, int B, int C, float r2, int skip,
                                 void* stream) {
-  if (C % kTile != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(C / kTile, B);
-  radius_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(queries), static_cast<const float*>(cands),
-      static_cast<const float*>(weights), static_cast<const float*>(bz),
-      static_cast<float*>(out), C, r2);
+  if (C % kTile != 0 || C < kTile || B < 1 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int splits = C / kTile < kMaxSplits ? C / kTile : kMaxSplits;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto p = static_cast<const float*>(xyz);
+  const auto v = static_cast<const uint8_t*>(valid);
+  const auto w = static_cast<const float*>(weights);
+  const auto bz = static_cast<float*>(scratch);
+  float* partial = bz + static_cast<size_t>(B) * 2 * (C / kSub);
+  int* tickets = reinterpret_cast<int*>(partial + static_cast<size_t>(splits) * B * C);
+  radius_prep_kernel<<<B, kPrepThreads, 0, s>>>(p, v, bz, tickets, C, r2);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((C + kBlockQueries - 1) / kBlockQueries, B, splits);
+  radius_kernel<<<grid, kThreads, 0, s>>>(p, v, w, bz, partial, tickets, static_cast<float*>(out),
+                                          C, r2, skip);
   return static_cast<int>(cudaGetLastError());
 }

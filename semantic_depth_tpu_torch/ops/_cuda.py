@@ -36,11 +36,12 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points: name -> argtypes (each returns cudaGetLastError() as int)
 _SIGNATURES = {
     "sd_knn_grid": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "sd_mad_keep": [_P, _P, _P, _P, _I, _I, _P],
-    "sd_radius_counts": [_P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _P],
+    "sd_mad_keep": [_P, _P, _P, _F, _F, _I, _P, _I, _I, _P],
+    "sd_radius_counts": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "sd_exact_knn": [_P, _P, _P, _I, _I, _I, _P],
 }
 

@@ -11,6 +11,12 @@ Replaces ``semantic_depth_tpu/ops/pallas_mad.py::mad_keep_mask_pallas``
 The medians are exact order statistics in the IEEE total order of the
 ordered-uint32 map (+-inf and nan included, nan above +inf), so kernel and
 plain version give bit-equal masks. An empty row keeps nothing.
+
+On the card one thread-block cluster of ``CLUSTER`` CTAs owns a row; its
+radix select takes the digits of ``DIGIT_BITS``, most significant first
+(both fixed in the kernel). Rows whose slices fit in shared memory
+(``RESIDENT_SLICE`` values a CTA) stay resident there; the kernel streams
+longer rows' slices from global memory.
 """
 
 from __future__ import annotations
@@ -22,6 +28,13 @@ from . import _cuda
 _MAD_SCALE = 0.6745  # pcl.py:63
 _SIGN = 0x80000000
 _INVALID_KEY = 1 << 32  # sorts after every ordered-uint32 key
+
+# csrc/mad.cu's constants: the radix schedule, the CTAs of a row's cluster
+# and the longest slice a CTA keeps in shared memory
+DIGIT_BITS = (11, 11, 10)
+CLUSTER = 8
+RESIDENT_SLICE = 32768
+GROUP = 32  # bins per group of the two-level digit search
 
 
 def _ordered_key(x: torch.Tensor) -> torch.Tensor:
@@ -52,7 +65,8 @@ def _median_rows(values: torch.Tensor, valid: torch.Tensor, n: torch.Tensor) -> 
 def mad_keep_mask_plain(
     values: torch.Tensor, valid: torch.Tensor, thresholds: torch.Tensor
 ) -> torch.Tensor:
-    """Plain PyTorch version: sorts where the kernel selects by radix."""
+    """Plain PyTorch version: sorts where the kernel selects by radix.
+    ``thresholds`` is an (R,) float32 tensor."""
     n = valid.sum(-1, dtype=torch.int64)
     med = _median_rows(values, valid, n)
     diffs = (values - med[:, None]).abs()
@@ -63,35 +77,71 @@ def mad_keep_mask_plain(
     return valid & (penalty < thresholds[:, None])
 
 
-def mad_keep_mask(
-    values: torch.Tensor, valid: torch.Tensor, thresholds: torch.Tensor
-) -> torch.Tensor:
-    """values (R, N) float32, valid (R, N) bool, thresholds (R,) float32 ->
-    (R, N) bool keep mask. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (one block per row) or raise."""
+def threshold_rows(thresholds, rows: int, device) -> torch.Tensor:
+    """The (R,) float32 thresholds that ``mad_keep_mask`` applies: a tensor
+    as it is; one float for every row; a pair (a, b) for the first and the
+    second half of the rows."""
+    if isinstance(thresholds, torch.Tensor):
+        return thresholds
+    t0, t1, split = _by_value(thresholds, rows)
+    return torch.tensor([t0] * split + [t1] * (rows - split), dtype=torch.float32, device=device)
+
+
+def _by_value(thresholds, rows: int):
+    """(t0, t1, split): t0 on the rows before ``split``, t1 on the rest."""
+    if isinstance(thresholds, (tuple, list)):
+        if len(thresholds) != 2 or rows % 2:
+            raise ValueError("a threshold pair needs an even row count (two equal halves), "
+                             f"got {len(thresholds)} thresholds for {rows} rows")
+        return float(thresholds[0]), float(thresholds[1]), rows // 2
+    t = float(thresholds)
+    return t, t, rows
+
+
+def _launch(values, valid, thresholds, out) -> None:
+    """The kernel on checked tensors."""
+    r, n = values.shape
+    if isinstance(thresholds, torch.Tensor):
+        _cuda.require(thresholds, "thresholds", torch.float32, (r,))
+        if thresholds.device != values.device:
+            raise ValueError("values and thresholds must be on one device")
+        ptr, t0, t1, split = thresholds.data_ptr(), 0.0, 0.0, r
+    else:
+        ptr, (t0, t1, split) = None, _by_value(thresholds, r)
+    err = _cuda.library().sd_mad_keep(
+        values.data_ptr(), valid.data_ptr(), ptr, t0, t1, split, out.data_ptr(), r, n,
+        _cuda.stream_ptr(values),
+    )
+    _cuda.check(err, "mad_keep_mask")
+
+
+def mad_keep_mask(values: torch.Tensor, valid: torch.Tensor, thresholds) -> torch.Tensor:
+    """values (R, N) float32, valid (R, N) bool -> (R, N) bool keep mask.
+    ``thresholds``: one float for every row, a pair (a, b) for the first and
+    the second half of the rows (the fence pair), or an (R,) float32 tensor;
+    the floats go to the kernel by value, with no copy to the card. CPU
+    tensors take the plain version; CUDA tensors launch the kernel (one
+    cluster per row) or raise."""
     if values.device.type == "cpu":
-        return mad_keep_mask_plain(values, valid, thresholds)
+        rows = values.shape[0]
+        return mad_keep_mask_plain(values, valid, threshold_rows(thresholds, rows, "cpu"))
     if values.ndim != 2:
         raise ValueError(f"values must be (R, N), got {tuple(values.shape)}")
     r, n = values.shape
     if n % 4:
         raise ValueError(f"N={n} must be a multiple of 4 (vector loads)")
+    if r > 65535:
+        raise ValueError(f"at most 65535 rows a launch, got {r}")
     _cuda.require(values, "values", torch.float32)
     _cuda.require(valid, "valid", torch.bool, (r, n))
-    _cuda.require(thresholds, "thresholds", torch.float32, (r,))
-    if values.device != valid.device or values.device != thresholds.device:
-        raise ValueError("values, valid and thresholds must be on one device")
+    if values.device != valid.device:
+        raise ValueError("values and valid must be on one device")
     if values.data_ptr() % 16 or valid.data_ptr() % 4:
         raise ValueError("values must be 16-byte and valid 4-byte aligned (vector loads)")
     out = torch.empty((r, n), dtype=torch.bool, device=values.device)
     if out.numel() == 0:
         return out
-    lib = _cuda.library()
-    err = lib.sd_mad_keep(
-        values.data_ptr(), valid.data_ptr(), thresholds.data_ptr(), out.data_ptr(),
-        r, n, _cuda.stream_ptr(values),
-    )
-    _cuda.check(err, "mad_keep_mask")
+    _launch(values, valid, thresholds, out)
     mad_keep_mask.launches += 1
     return out
 

@@ -122,12 +122,12 @@ def threshold_abs(cloud: MaskedCloud, axis: int, threshold: float) -> MaskedClou
 
 
 def _mad_rows(values, valid, thresholds):
-    """(..., N) planes -> one ``mad_keep_mask`` call over all rows."""
+    """(..., N) planes -> one ``mad_keep_mask`` call over all rows;
+    ``thresholds`` is a float or a pair for the two halves of the rows, and
+    goes to the kernel by value (no copy to the card)."""
     n = values.shape[-1]
-    thr = torch.as_tensor(thresholds, dtype=torch.float32, device=values.device)
-    thr = thr.expand(values.shape[:-1]).reshape(-1).contiguous()
     keep = mad_ops.mad_keep_mask(
-        values.reshape(-1, n).contiguous(), valid.reshape(-1, n).contiguous(), thr
+        values.reshape(-1, n).contiguous(), valid.reshape(-1, n).contiguous(), thresholds
     )
     return keep.reshape(valid.shape)
 
@@ -136,20 +136,19 @@ def mad_filter(cloud: MaskedCloud, axis: int, threshold: float) -> MaskedCloud:
     """pcl.remove_noise_by_mad (pcl.py:46-81): keep
     0.6745 * |x - median| / MAD < threshold. All leading (frame) rows go to
     the MAD kernel in one launch."""
-    return cloud.with_mask(_mad_rows(cloud.xyz[..., axis], cloud.valid, threshold))
+    return cloud.with_mask(_mad_rows(cloud.xyz[..., axis], cloud.valid, float(threshold)))
 
 
 def mad_filter_pair(
     a: MaskedCloud, b: MaskedCloud, axis: int, threshold_a: float, threshold_b: float
 ) -> Tuple[MaskedCloud, MaskedCloud]:
     """Two independent MAD filters (the left/right fence split,
-    semantic_depth.py:293-305) as ONE launch over the stacked rows, each row
-    with its own threshold. Same results as two ``mad_filter`` calls."""
+    semantic_depth.py:293-305) as ONE launch over the stacked rows: ``a``'s
+    rows take ``threshold_a``, ``b``'s ``threshold_b``. Same results as two
+    ``mad_filter`` calls."""
     vals = torch.stack([a.xyz[..., axis], b.xyz[..., axis]])
     valids = torch.stack([a.valid, b.valid])
-    thr = torch.tensor([threshold_a, threshold_b], dtype=torch.float32, device=vals.device)
-    thr = thr.reshape((2,) + (1,) * (vals.ndim - 2))
-    keep = _mad_rows(vals, valids, thr.expand(vals.shape[:-1]))
+    keep = _mad_rows(vals, valids, (float(threshold_a), float(threshold_b)))
     return a.with_mask(keep[0]), b.with_mask(keep[1])
 
 

@@ -1,5 +1,5 @@
-"""Weighted radius neighbour counts: hand-written CUDA kernel (``csrc/radius.cu``)
-and its plain PyTorch version.
+"""Weighted radius neighbour counts: hand-written CUDA kernels (``csrc/radius.cu``)
+and their plain PyTorch versions.
 
 Replaces ``semantic_depth_tpu/ops/pallas_exact_knn.py::radius_counts_pallas``
 (``_radius_kernel``). For each valid query of each frame, the sum of the
@@ -10,7 +10,14 @@ reference's rounding.
 
 Kernel and plain version write the cross term as three products and two
 sums in the same order, and the squared norms likewise, without fused
-multiply-adds, so their counts are bit-equal on the card.
+multiply-adds, so each pair counts in both or in neither, and where the
+weighted sums are exact in float32 (integer or dyadic weights) the counts
+are bit-equal on the card. The kernel adds its candidate splits' sums in a
+fixed order, so its counts are the same on every run whatever the weights.
+On the card the wrapper allocates and launches, and nothing else: a
+preparation kernel computes the z-ranges that ``subtile_ranges`` computes
+here, and the count kernel skips, per warp of queries, every subtile whose
+range misses them.
 """
 
 from __future__ import annotations
@@ -21,36 +28,33 @@ import torch.nn.functional as F
 from . import _cuda
 from .pcl import valid_span
 
-_TILE = 128  # csrc/radius.cu: queries per block, candidates per tile
+# csrc/radius.cu's constants
+SUBTILE = 32  # candidates per z-range
+TILE = 128  # candidates per staged tile; the capacity must be a multiple
+QUERIES_PER_THREAD = 2  # consecutive queries of a thread
+WARP_QUERIES = 32 * QUERIES_PER_THREAD  # the queries whose z-range a warp tests
+BLOCK_QUERIES = 4 * WARP_QUERIES
+MAX_SPLITS = 16  # interleaved shares of the candidate tiles (at most C // TILE)
 _PLAIN_BLOCK = 1024  # candidates per step of the plain version (bounds its memory)
 
 
-def _prepare(xyz: torch.Tensor, valid: torch.Tensor, weights: torch.Tensor, radius: float,
-             skip: bool):
-    """Kernel inputs, as pallas_exact_knn.py:162-202 builds them:
-    candidates zeroed with weight 0 where invalid; invalid query rows take
-    the frame's first valid point (a real point keeps the tile z-range tight
-    and never nan); per-tile valid-z ranges widened by
-    sqrt(r^2 + 4e-6 * max|p|^2), the radius plus the Gram identity's float32
-    error bound, so a skipped tile provably holds no neighbour."""
+def subtile_ranges(xyz: torch.Tensor, valid: torch.Tensor, radius: float) -> torch.Tensor:
+    """Plain version of the preparation kernel: (B, C, 3), (B, C) -> (B, 2,
+    C // SUBTILE) float32, each subtile's valid-z range (lows, then highs)
+    widened by sqrt(r^2 + 4e-6 * max|p|^2), the radius plus the Gram
+    identity's float32 error bound (pallas_exact_knn.py:162-202), so a
+    skipped subtile provably holds no neighbour. An empty subtile gets
+    (+inf, -inf); nan coordinates are left out (a nan pair never counts)."""
     b, c = valid.shape
-    w = torch.where(valid, weights.float(), 0.0)
-    cands = torch.where(valid[..., None], xyz, 0.0).float()
-    first = valid.int().argmax(-1)  # row 0 when a frame has no valid row
-    fill = xyz.gather(1, first[:, None, None].expand(b, 1, 3))
-    queries = torch.where(valid[..., None], xyz, fill).float()
-    sq = (xyz * xyz).sum(-1)
-    maxsq = torch.where(valid, sq, 0.0).amax(-1, keepdim=True)
-    zthr = torch.sqrt(torch.tensor(float(radius), device=xyz.device) ** 2 + 4e-6 * maxsq)
-    if not skip:  # validation: disable tile skipping
-        zthr = torch.full_like(zthr, float("inf"))
-    zc = xyz[..., 2].reshape(b, c // _TILE, _TILE)
-    vb = valid.reshape(b, c // _TILE, _TILE)
-    bz = torch.cat([
-        torch.where(vb, zc, float("inf")).amin(-1) - zthr,
-        torch.where(vb, zc, float("-inf")).amax(-1) + zthr,
-    ], dim=-1)  # (B, 2 * n_tiles): lows then highs
-    return queries.contiguous(), cands.contiguous(), w.contiguous(), bz.contiguous()
+    x, y, z = xyz.float().unbind(-1)
+    sq = x * x + y * y + z * z
+    maxsq = torch.where(valid & ~sq.isnan(), sq, 0.0).amax(-1, keepdim=True)
+    zthr = torch.sqrt(float(radius) ** 2 + 4e-6 * maxsq)
+    ok = (valid & ~z.isnan()).reshape(b, -1, SUBTILE)
+    zs = z.reshape(b, -1, SUBTILE)
+    lo = torch.where(ok, zs, float("inf")).amin(-1) - zthr
+    hi = torch.where(ok, zs, float("-inf")).amax(-1) + zthr
+    return torch.stack([lo, hi], dim=1)
 
 
 def radius_counts_plain(
@@ -80,36 +84,54 @@ def radius_counts_plain(
     return F.pad(torch.where(valid, acc, 0.0), (0, c - n))
 
 
+def scratch_words(b: int, c: int) -> int:
+    """float32 words of the kernels' scratch: the subtile ranges (B, 2,
+    C // SUBTILE), the splits' sums (S, B, C) and one int32 ticket per frame
+    and query block (S = min(MAX_SPLITS, C // TILE), as the kernel takes)."""
+    splits = min(MAX_SPLITS, c // TILE)
+    return b * (2 * (c // SUBTILE) + splits * c + -(-c // BLOCK_QUERIES))
+
+
+def _launch(xyz, valid, weights, radius, skip, scratch, out) -> None:
+    """The two kernels on checked tensors; the subtile ranges land in the
+    first B * 2 * (C // SUBTILE) words of ``scratch``."""
+    b, c = valid.shape
+    err = _cuda.library().sd_radius_counts(
+        xyz.data_ptr(), valid.data_ptr(), weights.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        b, c, float(radius) ** 2, int(skip), _cuda.stream_ptr(xyz),
+    )
+    _cuda.check(err, "radius_counts")
+
+
 def radius_counts(
     xyz: torch.Tensor, valid: torch.Tensor, weights: torch.Tensor, radius: float,
     skip: bool = True,
 ) -> torch.Tensor:
     """xyz (B, C, 3) float32, valid (B, C) bool, weights (B, C) float32 ->
     (B, C) float32 weighted counts. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (grid (C/128, B), one launch per batch) or
-    raise. ``skip=False`` turns the z-range tile skip off."""
+    tensors launch the kernels (one preparation block per frame, then grid
+    (C / BLOCK_QUERIES, B, min(MAX_SPLITS, C / TILE)); one call per batch)
+    or raise.
+    ``skip=False`` turns the z-range skip off."""
     if xyz.device.type == "cpu":
         return radius_counts_plain(xyz, valid, weights, radius)
     if xyz.ndim != 3 or xyz.shape[-1] != 3:
         raise ValueError(f"xyz must be (B, C, 3), got {tuple(xyz.shape)}")
     b, c, _ = xyz.shape
-    if c % _TILE:
-        raise ValueError(f"capacity {c} must be a multiple of {_TILE}")
+    if c % TILE:
+        raise ValueError(f"capacity {c} must be a multiple of {TILE}")
+    if b > 65535:
+        raise ValueError(f"at most 65535 frames a launch, got {b}")
     _cuda.require(xyz, "xyz", torch.float32)
     _cuda.require(valid, "valid", torch.bool, (b, c))
     _cuda.require(weights, "weights", torch.float32, (b, c))
     out = torch.empty((b, c), dtype=torch.float32, device=xyz.device)
     if out.numel() == 0:
         return out
-    queries, cands, w, bz = _prepare(xyz, valid, weights, radius, skip)
-    lib = _cuda.library()
-    err = lib.sd_radius_counts(
-        queries.data_ptr(), cands.data_ptr(), w.data_ptr(), bz.data_ptr(), out.data_ptr(),
-        b, c, float(radius) ** 2, _cuda.stream_ptr(xyz),
-    )
-    _cuda.check(err, "radius_counts")
+    scratch = torch.empty(scratch_words(b, c), dtype=torch.float32, device=xyz.device)
+    _launch(xyz, valid, weights, radius, skip, scratch, out)
     radius_counts.launches += 1
-    return torch.where(valid, out, 0.0)
+    return out
 
 
 radius_counts.launches = 0

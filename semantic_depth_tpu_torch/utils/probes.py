@@ -1,0 +1,124 @@
+"""Measurement helpers for the port on a CUDA card, shared by
+``chip_smoke.py``, ``tools/time_mad_radius.py`` and the card tests:
+
+* ``cuda_ms`` and ``cuda_ms_stream``: device milliseconds by CUDA events;
+* ``recording_kernel_calls``: the arguments of every MAD and radius kernel
+  call that a block of code makes (run the geometry tail inside it to get
+  the frame program's own launches);
+* ``sync_debug``: the geometry tail's MAD and radius filters under
+  ``torch.cuda.set_sync_debug_mode``, so that a synchronising CUDA call in
+  them (a host-to-device copy of a threshold or a radius) raises or is
+  collected.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import statistics
+import warnings
+
+import torch
+
+from ..ops import mad, neighbors, pcl, radius
+
+# the filters whose kernels take their thresholds and radius by value
+SYNC_FREE_FILTERS = ((pcl, "mad_filter"), (pcl, "mad_filter_pair"),
+                     (neighbors, "radius_outlier_filter"))
+
+
+def cuda_ms(fn, iters=20, warmup=3):
+    """Median milliseconds of one call of ``fn`` on the card (CUDA events
+    around each call, after ``warmup`` calls)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def cuda_ms_stream(fn, reps=20, iters=5):
+    """Median over ``iters`` of the mean milliseconds of ``reps`` calls of
+    ``fn`` back to back (CUDA events around the run): the device's time per
+    call while the host stays ahead of it."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+@contextlib.contextmanager
+def _wrapped(targets, wrap):
+    """Replace each ``(module, name)`` by ``wrap(original, name)`` inside the
+    block."""
+    saved = [(m, n, getattr(m, n)) for m, n in targets]
+    for m, n, fn in saved:
+        setattr(m, n, wrap(fn, n))
+    try:
+        yield
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+@contextlib.contextmanager
+def recording_kernel_calls():
+    """Yields ``{"mad": [...], "radius": [...]}``, which collects the
+    positional arguments (tensors cloned) of every ``mad.mad_keep_mask`` and
+    ``radius.radius_counts`` call made inside the block. The calls still
+    run; their launches count on the recorder, not on the wrapper."""
+    calls = {"mad": [], "radius": []}
+
+    def wrap(fn, name):
+        store = calls["mad" if name == "mad_keep_mask" else "radius"]
+
+        def rec(*args, **kw):
+            store.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+            return fn(*args, **kw)
+
+        rec.launches = fn.launches  # the wrapper counts through its module-level name
+        return rec
+
+    with _wrapped(((mad, "mad_keep_mask"), (radius, "radius_counts")), wrap):
+        yield calls
+
+
+@contextlib.contextmanager
+def sync_debug(mode="error"):
+    """Inside the block, every call of ``SYNC_FREE_FILTERS`` runs under
+    ``torch.cuda.set_sync_debug_mode(mode)``. With ``"error"`` a
+    synchronising CUDA call in them raises a RuntimeError; with ``"warn"``
+    the yielded list collects the first line of each such warning."""
+    found = []
+
+    def wrap(fn, _name):
+        def run(*args, **kw):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode(mode)
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                    found.extend(str(w.message).splitlines()[0] for w in caught
+                                 if "called a synchronizing" in str(w.message))
+        return run
+
+    with _wrapped(SYNC_FREE_FILTERS, wrap):
+        yield found

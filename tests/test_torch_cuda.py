@@ -19,6 +19,7 @@ from semantic_depth_tpu_torch.io.ply import PlyCloud
 from semantic_depth_tpu_torch.ops import exact_knn, knn_grid, mad, radius
 from semantic_depth_tpu_torch.utils import outlier_removal
 from semantic_depth_tpu_torch.utils.bench_scenes import scene_pool
+from semantic_depth_tpu_torch.utils.probes import sync_debug
 
 pytestmark = pytest.mark.gpu
 
@@ -76,6 +77,124 @@ def test_radius_kernel_matches_plain_bit_equal(cuda):
     assert torch.equal(radius.radius_counts(xyz, valid, w, 0.5, skip=False), want)
 
 
+def _scene_like_rows(rows, n=131072, seed=3):
+    """Rows like the frame program's MAD planes: a coordinate around -1.5
+    with a few far outliers, 7% (road) or 30% (fence) of the points valid."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(rows, n)) * 0.2 - 1.5).astype(np.float32)
+    out = rng.random((rows, n)) < 0.01
+    x[out] = rng.uniform(-40, 40, size=int(out.sum()))
+    frac = np.where(np.arange(rows) % 2 == 0, 0.07, 0.3)[:, None]
+    return x, rng.random((rows, n)) < frac
+
+
+@pytest.mark.parametrize("rows, thresholds", [(8, 15.0), (16, (5.0, 1.0))])
+def test_mad_kernel_bit_equal_at_the_main_path_launches(cuda, rows, thresholds):
+    """8 and 16 rows of 131072 (the frame program's four launches), with
+    the thresholds by value as pcl passes them and as an (R,) tensor."""
+    x, ok = _scene_like_rows(rows)
+    vals = torch.from_numpy(x).to(cuda)
+    valid = torch.from_numpy(ok).to(cuda)
+    thr = mad.threshold_rows(thresholds, rows, cuda)
+    want = mad.mad_keep_mask_plain(vals, valid, thr)
+    assert torch.equal(mad.mad_keep_mask(vals, valid, thresholds), want)
+    assert torch.equal(mad.mad_keep_mask(vals, valid, thr), want)
+
+
+def test_mad_kernel_streams_a_row_of_2_21(cuda):
+    x, ok = _scene_like_rows(2, n=1 << 20, seed=4)
+    vals = torch.from_numpy(x.reshape(1, -1)).to(cuda)
+    valid = torch.from_numpy(ok.reshape(1, -1)).to(cuda)
+    thr = torch.full((1,), 2.0, device=cuda)
+    got = mad.mad_keep_mask(vals, valid, 2.0)  # too long for shared memory: streamed
+    assert torch.equal(got, mad.mad_keep_mask_plain(vals, valid, thr))
+
+
+def test_mad_kernel_valid_values_in_one_slice(cuda):
+    """Every valid value in one CTA's slice of 16384 (the others have none),
+    at the first, a middle and the last slice, odd and even counts."""
+    n = 131072
+    rng = np.random.default_rng(6)
+    x = np.tile((rng.normal(size=n) * 3).astype(np.float32), (6, 1))
+    ok = np.zeros((6, n), bool)
+    for i, (start, count) in enumerate([(0, 101), (0, 100), (9 * 8192 + 5, 2000),
+                                        (9 * 8192 + 5, 2001), (n - 40, 40), (n - 4, 1)]):
+        ok[i, start:start + count] = True
+    vals = torch.from_numpy(x).to(cuda)
+    valid = torch.from_numpy(ok).to(cuda)
+    want = mad.mad_keep_mask_plain(vals, valid, torch.full((6,), 2.0, device=cuda))
+    assert torch.equal(mad.mad_keep_mask(vals, valid, 2.0), want)
+
+
+def test_radius_kernel_dead_blocks_empty_frame_and_ranges(cuda):
+    """(8, 16384) compacted-cloud-like frames whose valid rows fill only the
+    first half (half the query blocks hold no valid query), one frame with
+    no valid row, inf garbage on invalid rows; skip on and off; the
+    preparation kernel's ranges equal subtile_ranges'."""
+    rng = np.random.default_rng(11)
+    b, c = 8, 16384
+    pts = rng.normal(size=(b, c, 3)) * [1.5, 0.05, 4.0] + [0.0, -1.5, -12.0]
+    pts[..., 2] = np.sort(pts[..., 2], axis=-1)[:, ::-1]
+    pts = (np.round(pts * 256) / 256).astype(np.float32)
+    valid = np.zeros((b, c), bool)
+    valid[:, :c // 2] = rng.random((b, c // 2)) < 0.85
+    valid[5] = False
+    pts[~valid] = np.inf
+    xyz = torch.from_numpy(pts).to(cuda)
+    v = torch.from_numpy(valid).to(cuda)
+    w = torch.from_numpy(rng.choice([1.0, 2.0, 0.5], size=(b, c)).astype(np.float32)).to(cuda)
+    want = radius.radius_counts_plain(xyz, v, w, 0.5)
+    assert torch.equal(radius.radius_counts(xyz, v, w, 0.5), want)
+    assert torch.equal(radius.radius_counts(xyz, v, w, 0.5, skip=False), want)
+    assert float(want[5].abs().sum()) == 0.0 and float(want[0].max()) > 1.0
+    scratch = torch.empty(radius.scratch_words(b, c), device=cuda)
+    out = torch.empty((b, c), device=cuda)
+    radius._launch(xyz, v, w, 0.5, True, scratch, out)
+    assert torch.equal(out, want)
+    ranges = scratch[:b * 2 * (c // radius.SUBTILE)].view(b, 2, -1)
+    assert torch.equal(ranges, radius.subtile_ranges(xyz, v, 0.5))
+
+
+@pytest.mark.parametrize("c", [16384, 1152])
+def test_radius_kernel_sums_non_dyadic_weights_the_same_every_run(cuda, c):
+    """Density weights divided by a pixel scale of 2.25 (a 384x768 input)
+    are not dyadic, so their float32 sums depend on the order of the adds:
+    the kernel adds its candidate splits in a fixed order, so three runs
+    agree bit for bit, and each is within rtol 1e-4 of the plain version's
+    blockwise sums (float32 sums of up to a few thousand terms in another
+    order). At c = 1152 the kernel takes 9 splits, not 16."""
+    rng = np.random.default_rng(13)
+    pts = rng.normal(size=(4, c, 3)) * [1.0, 0.05, 2.0] + [0.0, -1.5, -12.0]
+    xyz = torch.from_numpy(pts.astype(np.float32)).to(cuda)
+    v = torch.from_numpy(rng.random((4, c)) < 0.8).to(cuda)
+    w = torch.from_numpy(rng.integers(1, 9, size=(4, c)).astype(np.float32)).to(cuda)
+    w = w / torch.tensor(2.25, device=cuda)
+    runs = [radius.radius_counts(xyz, v, w, 0.5) for _ in range(3)]
+    assert all(torch.equal(r, runs[0]) for r in runs[1:])
+    torch.testing.assert_close(runs[0], radius.radius_counts_plain(xyz, v, w, 0.5),
+                               rtol=1e-4, atol=0)
+
+
+def test_geometry_tail_makes_no_host_sync_in_mad_and_radius(cuda):
+    """The MAD and radius filters of the frame program run under
+    torch.cuda.set_sync_debug_mode('error'): a host-to-device copy of a
+    threshold or a radius there would raise."""
+    imgs, labels, disp_norm = scene_pool(2, 256, 512, seed=0)[:3]
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        imgs.astype(np.float32), labels == 7, labels == 13, disp_norm * np.float32(2048.0))]
+    cfg = config.munich_pipeline_config()
+    cam, _ = pipeline._scaled_camera(cfg, cfg.camera.focal)
+    pipe = pipeline.SemanticDepthPipeline(
+        cfg, FCN8s(width_mult=0.0625, fc_channels=32), Monodepth(width_mult=0.0625), device=cuda)
+    before = [fn.launches for fn in (mad.mad_keep_mask, radius.radius_counts)]
+    with torch.inference_mode(), sync_debug("error"):
+        out = pipe._batch_geometry(*args, cam)
+    torch.cuda.synchronize()
+    after = [fn.launches for fn in (mad.mad_keep_mask, radius.radius_counts)]
+    assert [a - b_ for a, b_ in zip(after, before)] == [4, 1]
+    assert bool(torch.isfinite(out.dist_rw).all())
+
+
 def _exact_knn_frames(c=1000):
     """Frames of one (4, c) batch, c off the kernel's tiles: a road-like
     cloud with nan garbage on its invalid rows, coincident duplicates, fewer
@@ -121,9 +240,20 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         mad.mad_keep_mask(vals[:, :1022], ok[:, :1022], torch.ones(2, device=cuda))
     with pytest.raises(ValueError):
+        mad.mad_keep_mask(vals[:1], ok[:1], (5.0, 1.0))  # a pair needs two equal halves
+    with pytest.raises(ValueError):  # past the launch's 65535 clusters of rows
+        mad.mad_keep_mask(torch.zeros((65536, 4), device=cuda),
+                          torch.ones((65536, 4), dtype=torch.bool, device=cuda), 2.0)
+    with pytest.raises(ValueError):  # not 16-byte aligned for the vector loads
+        mad.mad_keep_mask(vals.reshape(-1)[1:1025].reshape(1, 1024), ok[:1], 2.0)
+    with pytest.raises(ValueError):
         radius.radius_counts(torch.zeros((1, 100, 3), device=cuda),
                              torch.ones((1, 100), dtype=torch.bool, device=cuda),
                              torch.ones((1, 100), device=cuda), 0.5)
+    with pytest.raises(ValueError):
+        radius.radius_counts(torch.zeros((1, 128, 3), device=cuda),
+                             torch.ones((1, 128), dtype=torch.bool, device=cuda),
+                             torch.ones((1, 128), dtype=torch.float64, device=cuda), 0.5)
     x = torch.zeros((1, 100, 3), device=cuda)
     ok = torch.ones((1, 100), dtype=torch.bool, device=cuda)
     for k in (0, exact_knn.KERNEL_MAX_K + 1):
