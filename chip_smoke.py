@@ -10,15 +10,19 @@ either is missing or any check fails. Phases:
 2. build: the hand-written kernels of ``csrc/`` (nvcc, sm_90a), with ptxas
    register and shared-memory lines;
 3. kernels against their plain PyTorch versions on the card, at the paths'
-   shapes: knn_grid (8, 256, 512) within rtol 1e-5 / atol 1e-6, mad (the
-   frame program's recorded launches, 40 rows of 131072 and a streamed row
-   of 2^21) and radius (8, 16384) bit-equal, radius with the z-range tile
-   skip on and off, and with non-dyadic weights the same on three runs and
-   within rtol 1e-4 of the plain version; exact_knn bit-equal (+inf pattern included) at
-   (8, 16384) (the exact mode's compacted road clouds), (1, 131072) (a whole
-   scene cloud with outliers) and on edge frames (duplicates, fewer than k
-   valid points, no valid point, nan garbage, a ragged capacity); median
-   times (CUDA events) of kernel and plain version beside the bound;
+   shapes: knn_grid (8, 256, 512) bit-equal, and on grids with valid +-inf
+   points (its exact path); mad (the frame program's recorded launches, 40
+   rows of 131072 and a streamed row of 2^21) and radius (8, 16384)
+   bit-equal, radius with the z-range tile skip on and off, and with
+   non-dyadic weights the same on three runs and within rtol 1e-4 of the
+   plain version; exact_knn bit-equal (+inf pattern included), with its box
+   skip on and off, at (8, 16384) (the exact mode's compacted road clouds),
+   (1, 131072) (a whole scene cloud with outliers), on edge frames
+   (duplicates, fewer than k valid points, no valid point, nan garbage, a
+   ragged capacity) and on a cloud 150-250 m from the origin at cm spacing
+   (where the skip margin decides), its preparation kernel's boxes equal to
+   ``subtile_boxes``, and the pairs it scanned beside all n^2; median times
+   (CUDA events) of kernel and plain version beside the bounds;
 4. the geometry tail on analytic scenes (true masks and disparity) on the
    card and on the CPU, in both statistical modes: dist_rw / dist_f2f agree
    within 1e-3 m, rw MAE against the analytic width under 0.1 m, launches
@@ -157,11 +161,24 @@ def phase_kernels(dev, scenes):
     want = knn_grid.knn_mean_distances_grid_plain(pts, valid, 10, (5, 21))
     torch.cuda.synchronize()
     fin = torch.isfinite(want)
-    check(torch.equal(torch.isfinite(got), fin), "K1 finite maps equal")
     err = (got[fin] - want[fin]).abs().max().item() if fin.any() else 0.0
-    check(torch.allclose(got[fin], want[fin], rtol=1e-5, atol=1e-6),
-          f"K1 within rtol 1e-5 / atol 1e-6 (max abs err {err:.3e}, bit-equal "
-          f"{torch.equal(got, want)}, {int(fin.sum())} finite of {fin.numel()})")
+    check(torch.equal(got, want), f"K1 bit-equal to the plain version (max abs err {err:.3e}, "
+          f"{int(fin.sum())} finite of {fin.numel()})")
+    # zero disparity back-projects to +-inf (nan on the principal point's
+    # row and column): the kernel's exact path keeps topk's nan after +inf
+    disp0 = scenes["disp"][:2].clone()
+    disp0[0, 150:170, 100:300] = 0.0
+    disp0[1, 200:256, :] = 0.0
+    pts_inf = camera.reproject_disparity(disp0, cfg.camera).contiguous()
+    valid_inf = torch.ones((2, 256, 512), dtype=torch.bool, device=dev)
+    valid_inf[1, ::3] = False
+    got_inf = knn_grid.knn_mean_distances_grid(pts_inf, valid_inf, 10, (5, 21))
+    want_inf = knn_grid.knn_mean_distances_grid_plain(pts_inf, valid_inf, 10, (5, 21))
+    torch.cuda.synchronize()
+    check(torch.equal(got_inf.isnan(), want_inf.isnan())
+          and torch.equal(got_inf.nan_to_num(), want_inf.nan_to_num()),
+          f"K1 with valid +-inf points bit-equal ({int(want_inf.isnan().sum())} nan, "
+          f"{int(torch.isinf(want_inf[valid_inf]).sum())} +inf among the valid pixels)")
     # the plain version on the CPU (IEEE sqrt and division for certain)
     want_cpu = knn_grid.knn_mean_distances_grid_plain(pts.cpu(), valid.cpu(), 10, (5, 21))
     fin_cpu = torch.isfinite(want_cpu)
@@ -173,6 +190,7 @@ def phase_kernels(dev, scenes):
         valid.float()[:, None], torch.ones((1, 1, 5, 21), device=dev), padding=(2, 10))[:, 0]
     n_ops = float((cand * valid).sum()) * 28.0 + float(valid.sum()) * 21.0
     t_bound, by = bound_ms(b * h * w * (12 + 1 + 4), n_ops)
+    pairs_all = float(valid.sum()) * 5 * 21  # the kernel scores every offset of a valid pixel
     rows["knn_grid"] = dict(
         name="knn_grid", route="cuda", source="semantic_depth_tpu_torch/csrc/knn_grid.cu",
         replaces="semantic_depth_tpu/ops/pallas_knn.py:36", max_abs_err=err,
@@ -180,6 +198,11 @@ def phase_kernels(dev, scenes):
         plain_ms=cuda_ms(lambda: knn_grid.knn_mean_distances_grid_plain(pts, valid, 10, (5, 21)),
                          iters=5, warmup=1),
         bound_ms=t_bound, bound_by=by, library_ms=None, library_note=_NO_LIBRARY,
+        pairs_all=pairs_all, pairs_scanned=pairs_all, pairs_valid=float((cand * valid).sum()),
+        ms_scene_frames=cuda_ms(lambda: knn_grid.knn_mean_distances_grid(
+            pts[:4], valid[:4], 10, (5, 21))),
+        ms_random_frames=cuda_ms(lambda: knn_grid.knn_mean_distances_grid(
+            pts[4:], valid[4:], 10, (5, 21))),
         shape="points (8, 256, 512, 3) f32, valid (8, 256, 512), k=10, window (5, 21)",
     )
 
@@ -431,16 +454,56 @@ def exact_knn_edge_frames(xyz16k, valid16k, dev):
     return xyz.contiguous(), valid.contiguous()
 
 
-def exact_knn_bound(xyz, valid):
-    """Least time for the pairs this data needs: n^2 (valid query, valid
-    candidate) pairs per frame at 10 float32 operations each (three
-    products and two sums of the cross term, the norm sum, the doubling,
-    the subtraction, the clamp and the compare), against reading each
-    point (12 + 1 bytes) and writing its mean (4 bytes) once."""
+def exact_knn_bound(valid, k=10):
+    """K4's bound from its inputs alone: reading each point (12 + 1 bytes)
+    and writing its mean (4 bytes) once, against the pairs any exact kNN
+    computes, each valid query's min(k, n) neighbours (n valid points in its
+    frame) at 10 float32 operations a pair (three products and two sums of
+    the cross term, the norm sum, the doubling, the subtraction, the clamp
+    and the compare). Beside it, for reference only, the same rate over all
+    n^2 pairs: the work of a design that computes every pair, which is no
+    lower bound. Returns (ms, by, pairs needed, all-pairs ms, all pairs)."""
     n = valid.sum(-1).double()
+    needed = float((n * n.clamp(max=k)).sum())
     pairs = float((n * n).sum())
     b, c = valid.shape
-    return bound_ms(b * c * (12 + 1 + 4), pairs * 10.0) + (pairs,)
+    n_bytes = b * c * (12 + 1 + 4)
+    return bound_ms(n_bytes, needed * 10.0) + (needed, bound_ms(n_bytes, pairs * 10.0)[0], pairs)
+
+
+def exact_knn_scanned(xyz, valid):
+    """What the kernels did on this input (their own counts, one extra
+    launch that no counter sees) and, as a diagnostic beside the bound, the
+    time of that work at the card's peak rate: the pairs both walks computed
+    d2 for at 10 operations each, each subtile test at 21 operations for
+    each of the warp's 64 queries (three gaps of two subtractions and two
+    maxima, three squares, two sums, the threshold's three operations and
+    the compare), and each loaded subtile's 32 candidate tests at 21. It
+    grows with what the design chooses to scan, so it bounds nothing."""
+    from semantic_depth_tpu_torch.ops import exact_knn
+
+    b, c = valid.shape
+    scratch = torch.empty(exact_knn.scratch_words(b, c, 10), device=xyz.device)
+    out = torch.empty((b, c), device=xyz.device)
+    exact_knn._launch(xyz, valid, 10, True, scratch, out)
+    stats = exact_knn.scratch_stats(scratch)
+    sub, grp = exact_knn.scratch_boxes(scratch, b, c)
+    want_sub, want_grp = exact_knn.subtile_boxes(xyz, valid)
+    boxes_equal = bool(torch.equal(sub, want_sub) and torch.equal(grp, want_grp))
+    pairs = float(stats["pairs_near"] + stats["pairs_far"])
+    ops = pairs * 10.0 + 21.0 * (64 * stats["subtile_tests"] + 32 * stats["subtiles_loaded"])
+    return bound_ms(b * c * (12 + 1 + 4), ops) + (pairs, stats, boxes_equal)
+
+
+def far_cloud(dev):
+    """(1, 9600): a 48 x 200 grid at cm spacing about 150-250 m from the
+    origin, 90% valid: the Gram identity's float32 error is far above the
+    spacing there, and the skip margin decides what may be skipped."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    ys, xs = torch.meshgrid(torch.arange(48.0), torch.arange(200.0), indexing="ij")
+    grid = torch.stack([xs * 0.01, torch.randn((48, 200), generator=g) * 0.002, ys * 0.01], -1)
+    xyz = grid.reshape(1, -1, 3) + torch.tensor([120.0, -80.0, -150.0])
+    return xyz.to(dev).contiguous(), (torch.rand((1, 48 * 200), generator=g) < 0.9).to(dev)
 
 
 def phase_exact_knn(dev, scenes):
@@ -456,11 +519,14 @@ def phase_exact_knn(dev, scenes):
     big_xyz, big_valid, big_rgb = scene_cloud_with_outliers(scenes, dev)
     check(big_xyz.shape == (1, 131072, 3), "K4 input is (1, 131072) scene cloud with outliers")
     edge_xyz, edge_valid = exact_knn_edge_frames(xyz, valid, dev)
+    far_xyz, far_valid = far_cloud(dev)
     shapes = {}
     for name, (x, v) in (("road (8, 16384)", (xyz, valid)),
                          ("scene (1, 131072)", (big_xyz, big_valid)),
-                         ("edge frames (4, 5000)", (edge_xyz, edge_valid))):
+                         ("edge frames (4, 5000)", (edge_xyz, edge_valid)),
+                         ("far from the origin (1, 9600)", (far_xyz, far_valid))):
         got = knn(x, v, 10)
+        got_noskip = knn(x, v, 10, skip=False)
         want = plain(x, v, 10)
         torch.cuda.synchronize()
         check(torch.equal(torch.isinf(got), torch.isinf(want))
@@ -470,28 +536,39 @@ def phase_exact_knn(dev, scenes):
         err = (got[fin] - want[fin]).abs().max().item() if fin.any() else 0.0
         check(torch.equal(got, want), f"K4 {name}: bit-equal to the plain version "
               f"(max abs err {err}, {int(fin.sum())} finite)")
+        check(torch.equal(got_noskip, want), f"K4 {name}: bit-equal with the box skip off")
+        t_bound, by, pairs_needed, t_all, pairs_all = exact_knn_bound(v)
+        t_scan, _, pairs_scanned, stats, boxes_equal = exact_knn_scanned(x, v)
+        check(boxes_equal, f"K4 {name}: preparation kernel's boxes equal subtile_boxes")
+        log(f"  K4 {name}: {pairs_scanned:.4g} pairs scanned of {pairs_all:.4g} ({stats})")
         if name.startswith("edge"):
             check(bool(torch.isinf(got[3]).all()) and bool(torch.isfinite(got[v]).all())
                   and float(got[1, :100].max()) == 0.0,
                   "K4 edge frames: no valid point -> +inf; duplicates at 0; 4 < k points finite")
+        if name.startswith(("edge", "far")):
             continue
-        t_bound, by, pairs = exact_knn_bound(x, v)
         iters = 20 if x.shape[1] <= 16384 else 5
         shapes[name] = dict(
             max_abs_err=err, ms=cuda_ms(lambda: knn(x, v, 10), iters=iters),
+            ms_noskip=cuda_ms(lambda: knn(x, v, 10, skip=False), iters=3, warmup=1),
             plain_ms=cuda_ms(lambda: plain(x, v, 10), iters=3 if iters == 20 else 2, warmup=1),
-            bound_ms=t_bound, bound_by=by, pairs_needed=pairs,
-            pairs_all=float(x.shape[0]) * x.shape[1] ** 2)
-        log(f"  K4 {name}: kernel {shapes[name]['ms']:.4f} ms, plain "
-            f"{shapes[name]['plain_ms']:.4f} ms, bound {t_bound:.4f} ms ({by}), "
-            f"{pairs:.4g} pairs needed")
+            bound_ms=t_bound, bound_by=by, pairs_needed=pairs_needed,
+            bound_ms_all_pairs=t_all, pairs_all=pairs_all, scanned_work_ms=t_scan,
+            pairs_scanned=pairs_scanned, counts=stats)
+        log(f"  K4 {name}: kernel {shapes[name]['ms']:.4f} ms (skip off "
+            f"{shapes[name]['ms_noskip']:.4f}), plain {shapes[name]['plain_ms']:.4f} ms, bound "
+            f"{t_bound:.4f} ms ({by}); all pairs at the peak rate {t_all:.4f} ms, "
+            f"the scanned work at the peak rate {t_scan:.4f} ms")
     main = shapes["road (8, 16384)"]
     row = dict(
         name="exact_knn", route="cuda", source="semantic_depth_tpu_torch/csrc/exact_knn.cu",
         replaces="semantic_depth_tpu/ops/pallas_exact_knn.py:32",
         max_abs_err=max(r["max_abs_err"] for r in shapes.values()),
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
-        bound_by=main["bound_by"], library_ms=None, library_note=_NO_LIBRARY,
+        bound_by=main["bound_by"], pairs_needed=main["pairs_needed"],
+        bound_ms_all_pairs=main["bound_ms_all_pairs"], pairs_all=main["pairs_all"],
+        scanned_work_ms=main["scanned_work_ms"], pairs_scanned=main["pairs_scanned"],
+        library_ms=None, library_note=_NO_LIBRARY,
         shape="xyz (8, 16384, 3) f32, valid (8, 16384), k=10", shapes=shapes,
     )
     return row, (big_xyz, big_valid, big_rgb)

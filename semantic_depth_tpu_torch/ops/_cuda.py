@@ -42,7 +42,7 @@ _SIGNATURES = {
     "sd_knn_grid": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sd_mad_keep": [_P, _P, _P, _F, _F, _I, _P, _I, _I, _P],
     "sd_radius_counts": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
-    "sd_exact_knn": [_P, _P, _P, _I, _I, _I, _P],
+    "sd_exact_knn": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

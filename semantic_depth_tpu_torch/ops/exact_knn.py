@@ -1,5 +1,5 @@
-"""Exact kNN mean distance over a masked cloud: hand-written CUDA kernel
-(``csrc/exact_knn.cu``) and its plain PyTorch version.
+"""Exact kNN mean distance over a masked cloud: hand-written CUDA kernels
+(``csrc/exact_knn.cu``) and their plain PyTorch version.
 
 Replaces ``semantic_depth_tpu/ops/pallas_exact_knn.py::knn_mean_distances_exact_pallas``
 (``_exact_knn_kernel``). For each valid row of each frame, the mean
@@ -13,6 +13,14 @@ d2 = max(|q|^2 + |c|^2 - 2 q.c, 0) in float32 (the Gram identity, never
 ``ops/radius.py``'s order. A nan d2 (only from non-finite valid points) is
 never a neighbour. Kernel and plain version take the same float32 steps, so
 their results are bit-equal on the card.
+
+The kernels visit only part of the pairs: a preparation kernel computes the
+axis-aligned box of every 32-candidate subtile and of every group of 32
+subtiles (``subtile_boxes`` here), and the search walks each warp's near
+field first and skips what provably holds no neighbour. The result does not
+depend on which candidates are skipped or in what order the rest are
+visited (the kept values are the multiset of the k smallest), so skipping
+changes no bit. ``skip=False`` scans every candidate in row order.
 """
 
 from __future__ import annotations
@@ -24,6 +32,22 @@ from . import _cuda
 from .pcl import valid_span
 
 KERNEL_MAX_K = 32  # csrc/exact_knn.cu instantiates k = 1 .. 32
+# csrc/exact_knn.cu's constants
+SUBTILE = 32  # candidates per box
+GROUP = 32  # subtiles per group box (1024 candidates)
+QUERIES_PER_THREAD = 2
+WARP_QUERIES = 32 * QUERIES_PER_THREAD  # the queries whose skip a warp votes on
+BLOCK_QUERIES = 4 * WARP_QUERIES
+# the skip margin (csrc/exact_knn.cu derives it): a candidate c is skipped
+# for a query q only if its box's squared distance exceeds
+# thr * (1 + MARGIN_THR) + MARGIN_SQ * (|q|^2 + max |c|^2 over the box)
+MARGIN_SQ = 2.0 ** -19
+MARGIN_THR = 2.0 ** -20
+# after its own group, a query whose k-th distance has a binary exponent more
+# than DEFER_EXP above its warp's mean leaves the warp: a second kernel
+# finishes it with the warp's 32 lanes over the candidates
+DEFER_EXP = 2
+STATS = ("pairs_near", "pairs_far", "subtiles_loaded", "subtile_tests", "deferred")
 _PLAIN_BLOCK = 1024  # candidates per step of the plain version (bounds its memory)
 
 
@@ -59,10 +83,83 @@ def knn_mean_distances_exact_plain(xyz: torch.Tensor, valid: torch.Tensor, k: in
     return F.pad(torch.where(valid, acc / cnt, inf), (0, c - n), value=inf)
 
 
-def knn_mean_distances_exact(xyz: torch.Tensor, valid: torch.Tensor, k: int) -> torch.Tensor:
+def _sizes(c: int):
+    """(subtiles S, padded capacity 32 S, groups G) of a capacity C."""
+    s = -(-c // SUBTILE)
+    return s, s * SUBTILE, -(-s // GROUP)
+
+
+def subtile_boxes(xyz: torch.Tensor, valid: torch.Tensor):
+    """Plain version of the preparation kernel's boxes: (B, C, 3), (B, C) ->
+    (subtiles (B, S, 8), groups (B, G, 8)) float32, S = ceil(C / SUBTILE),
+    G = ceil(S / GROUP). Each row is (lo x, lo y, lo z, m, hi x, hi y, hi z,
+    0): the box of the valid rows without a nan coordinate, and m their
+    largest |p|^2 (the skip margin's scale; +inf if one is infinite). An
+    empty box is (+inf, -inf) with m = 0. A group's box bounds its subtiles'."""
+    b, c = valid.shape
+    s, cp, g = _sizes(c)
+    x = F.pad(xyz.float(), (0, 0, 0, cp - c))
+    ok = F.pad(valid, (0, cp - c)) & ~x.isnan().any(-1)
+    px, py, pz = x.unbind(-1)
+    sq = px * px + py * py + pz * pz
+    inf = float("inf")
+    lo = torch.where(ok[..., None], x, inf).reshape(b, s, SUBTILE, 3).amin(2)
+    hi = torch.where(ok[..., None], x, -inf).reshape(b, s, SUBTILE, 3).amax(2)
+    m = torch.where(ok, sq, 0.0).reshape(b, s, SUBTILE).amax(2, keepdim=True)
+    zero = torch.zeros_like(m)
+    pad = g * GROUP - s
+    g_lo = F.pad(lo, (0, 0, 0, pad), value=inf).reshape(b, g, GROUP, 3).amin(2)
+    g_hi = F.pad(hi, (0, 0, 0, pad), value=-inf).reshape(b, g, GROUP, 3).amax(2)
+    g_m = F.pad(m, (0, 0, 0, pad)).reshape(b, g, GROUP, 1).amax(2)
+    return (torch.cat([lo, m, hi, zero], -1),
+            torch.cat([g_lo, g_m, g_hi, torch.zeros_like(g_m)], -1))
+
+
+def scratch_words(b: int, c: int, k: int) -> int:
+    """float32 words of the kernels' scratch, in this order: the candidates
+    as (x, y, z, |c|^2) (B, 32 S, 4), the subtile boxes (B, S, 8), the group
+    boxes (B, G, 8), the deferred queries' buffers (B * 32 S, k) and rows
+    (B * 32 S int32), and 8 words of counters (the deferred count and the
+    64-bit ``STATS``)."""
+    s, cp, g = _sizes(c)
+    return b * (cp * 4 + s * 8 + g * 8 + cp * k + cp) + 16
+
+
+def scratch_boxes(scratch: torch.Tensor, b: int, c: int):
+    """The preparation kernel's (subtiles, groups) boxes inside ``scratch``,
+    laid out as ``subtile_boxes`` returns them."""
+    s, cp, g = _sizes(c)
+    at = b * cp * 4
+    sub = scratch[at:at + b * s * 8].view(b, s, 8)
+    return sub, scratch[at + b * s * 8:at + b * (s + g) * 8].view(b, g, 8)
+
+
+def scratch_stats(scratch: torch.Tensor) -> dict:
+    """The counts the kernels leave in ``scratch`` (reads the card): pairs
+    scanned by the warps' near walk and by the deferred queries' far walk,
+    subtiles loaded, subtile tests, deferred queries."""
+    counts = scratch[-10:].view(torch.int64).tolist()
+    return dict(zip(STATS, counts))
+
+
+def _launch(xyz, valid, k, skip, scratch, out) -> None:
+    """The three kernels on checked tensors (preparation, near walk, far
+    walk), one launch each for the batch."""
+    b, c = valid.shape
+    err = _cuda.library().sd_exact_knn(
+        xyz.data_ptr(), valid.data_ptr(), scratch.data_ptr(), out.data_ptr(), b, c, k, int(skip),
+        _cuda.stream_ptr(xyz))
+    _cuda.check(err, "knn_mean_distances_exact")
+
+
+def knn_mean_distances_exact(
+    xyz: torch.Tensor, valid: torch.Tensor, k: int, skip: bool = True
+) -> torch.Tensor:
     """xyz (B, C, 3) float32, valid (B, C) bool -> (B, C) float32, any C.
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (grid (ceil(C/128), B), one launch per batch) or raise."""
+    CPU tensors take the plain version; CUDA tensors launch the kernels (a
+    preparation kernel, grid (G, B); the search, grid (ceil(C /
+    BLOCK_QUERIES), B); the deferred queries' kernel) or raise.
+    ``skip=False`` scans every candidate in row order (validation)."""
     if xyz.device.type == "cpu":
         return knn_mean_distances_exact_plain(xyz, valid, k)
     if not 1 <= k <= KERNEL_MAX_K:
@@ -70,15 +167,15 @@ def knn_mean_distances_exact(xyz: torch.Tensor, valid: torch.Tensor, k: int) -> 
     if xyz.ndim != 3 or xyz.shape[-1] != 3:
         raise ValueError(f"xyz must be (B, C, 3), got {tuple(xyz.shape)}")
     b, c, _ = xyz.shape
+    if b > 65535:
+        raise ValueError(f"at most 65535 frames a launch, got {b}")
     _cuda.require(xyz, "xyz", torch.float32)
     _cuda.require(valid, "valid", torch.bool, (b, c))
     out = torch.empty((b, c), dtype=torch.float32, device=xyz.device)
     if out.numel() == 0:
         return out
-    lib = _cuda.library()
-    err = lib.sd_exact_knn(xyz.data_ptr(), valid.data_ptr(), out.data_ptr(), b, c, k,
-                           _cuda.stream_ptr(xyz))
-    _cuda.check(err, "knn_mean_distances_exact")
+    scratch = torch.empty(scratch_words(b, c, k), dtype=torch.float32, device=xyz.device)
+    _launch(xyz, valid, k, skip, scratch, out)
     knn_mean_distances_exact.launches += 1
     return out
 

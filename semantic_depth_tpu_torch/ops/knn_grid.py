@@ -5,6 +5,16 @@ Replaces ``semantic_depth_tpu/ops/pallas_knn.py`` (``_knn_tile_body`` in its
 three kernels). For each valid pixel, the mean Euclidean distance to its k
 nearest valid points in a (wh, ww) image window, self included at 0; +inf
 for invalid pixels and for windows with fewer than k valid candidates.
+
+The kernel stages each block's halo tile as one float4 a candidate (x, y,
+z and w = 0 if valid, +inf if not), gives each thread two vertically
+adjacent pixels, visits the window's offsets nearest first in an order
+fixed at compile time and rejects a distance that cannot enter the k
+smallest with one compare. The kept values are the multiset of the k
+smallest whatever the order, so the result is bit-equal to the plain
+version's; a block whose tile holds a valid point with a coordinate that
+is not finite takes an exact path that keeps torch.topk's order of nan
+after +inf.
 """
 
 from __future__ import annotations

@@ -1,10 +1,12 @@
 """Measurement helpers for the port on a CUDA card, shared by
-``chip_smoke.py``, ``tools/time_mad_radius.py`` and the card tests:
+``chip_smoke.py``, ``tools/time_mad_radius.py``, ``tools/time_knn.py`` and the
+card tests:
 
 * ``cuda_ms`` and ``cuda_ms_stream``: device milliseconds by CUDA events;
-* ``recording_kernel_calls``: the arguments of every MAD and radius kernel
-  call that a block of code makes (run the geometry tail inside it to get
-  the frame program's own launches);
+  ``device_ms``: the profiler's device time of chosen kernels per call;
+* ``recording_kernel_calls``: the arguments of every kernel call (K1-K4)
+  that a block of code makes (run the geometry tail inside it to get the
+  frame program's own launches);
 * ``sync_debug``: the geometry tail's MAD and radius filters under
   ``torch.cuda.set_sync_debug_mode``, so that a synchronising CUDA call in
   them (a host-to-device copy of a threshold or a radius) raises or is
@@ -15,11 +17,12 @@ from __future__ import annotations
 
 import contextlib
 import statistics
+import time
 import warnings
 
 import torch
 
-from ..ops import mad, neighbors, pcl, radius
+from ..ops import exact_knn, knn_grid, mad, neighbors, pcl, radius
 
 # the filters whose kernels take their thresholds and radius by value
 SYNC_FREE_FILTERS = ((pcl, "mad_filter"), (pcl, "mad_filter_pair"),
@@ -63,6 +66,27 @@ def cuda_ms_stream(fn, reps=20, iters=5):
     return statistics.median(times)
 
 
+def device_ms(fn, iters, marks=None):
+    """(device ms of the kernels whose names hold one of ``marks``, or of
+    every kernel, per call; profiled wall ms per call) over ``iters`` calls
+    of ``fn`` in one ``torch.profiler`` pass."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(ev.time_range.elapsed_us() / 1e3 for ev in prof.events()
+               if ev.device_type.name == "CUDA"
+               and (marks is None or any(m in ev.name for m in marks)))
+    if busy == 0.0:
+        raise RuntimeError(f"no kernel matching {marks} ran")
+    return busy / iters, wall / iters
+
+
 @contextlib.contextmanager
 def _wrapped(targets, wrap):
     """Replace each ``(module, name)`` by ``wrap(original, name)`` inside the
@@ -77,16 +101,24 @@ def _wrapped(targets, wrap):
             setattr(m, n, fn)
 
 
+# the kernel wrappers by the recorder's key
+_WRAPPERS = {"mad": (mad, "mad_keep_mask"), "radius": (radius, "radius_counts"),
+             "exact_knn": (exact_knn, "knn_mean_distances_exact"),
+             "knn_grid": (knn_grid, "knn_mean_distances_grid")}
+
+
 @contextlib.contextmanager
 def recording_kernel_calls():
-    """Yields ``{"mad": [...], "radius": [...]}``, which collects the
-    positional arguments (tensors cloned) of every ``mad.mad_keep_mask`` and
-    ``radius.radius_counts`` call made inside the block. The calls still
-    run; their launches count on the recorder, not on the wrapper."""
-    calls = {"mad": [], "radius": []}
+    """Yields ``{"mad": [...], "radius": [...], "exact_knn": [...],
+    "knn_grid": [...]}``, which collects the positional arguments (tensors
+    cloned) of every call of those wrappers made inside the block. The
+    calls still run; their launches count on the recorder, not on the
+    wrapper."""
+    calls = {key: [] for key in _WRAPPERS}
+    keys = {name: key for key, (_, name) in _WRAPPERS.items()}
 
     def wrap(fn, name):
-        store = calls["mad" if name == "mad_keep_mask" else "radius"]
+        store = calls[keys[name]]
 
         def rec(*args, **kw):
             store.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
@@ -95,7 +127,7 @@ def recording_kernel_calls():
         rec.launches = fn.launches  # the wrapper counts through its module-level name
         return rec
 
-    with _wrapped(((mad, "mad_keep_mask"), (radius, "radius_counts")), wrap):
+    with _wrapped(_WRAPPERS.values(), wrap):
         yield calls
 
 

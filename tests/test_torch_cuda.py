@@ -13,13 +13,15 @@ import numpy as np
 import pytest
 import torch
 
-from semantic_depth_tpu_torch import config, pipeline
+from semantic_depth_tpu_torch import camera, config, pipeline
 from semantic_depth_tpu_torch.models import FCN8s, Monodepth
 from semantic_depth_tpu_torch.io.ply import PlyCloud
 from semantic_depth_tpu_torch.ops import exact_knn, knn_grid, mad, radius
 from semantic_depth_tpu_torch.utils import outlier_removal
 from semantic_depth_tpu_torch.utils.bench_scenes import scene_pool
 from semantic_depth_tpu_torch.utils.probes import sync_debug
+
+import torch_k4_schedule as k4
 
 pytestmark = pytest.mark.gpu
 
@@ -38,10 +40,28 @@ def test_knn_grid_kernel_matches_plain(cuda):
     v = torch.from_numpy(rng.random((2, 256, 512)) < 0.4).to(cuda)
     got = knn_grid.knn_mean_distances_grid(p, v, 10, (5, 21))
     want = knn_grid.knn_mean_distances_grid_plain(p, v, 10, (5, 21))
-    fin = torch.isfinite(want)
-    assert torch.equal(torch.isfinite(got), fin)
-    # same float32 operations in the same order (no FMA, IEEE sqrt/div)
-    torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-6)
+    # same float32 operations in the same order (no FMA, IEEE sqrt/div) and
+    # the same multiset of the 10 smallest: bit-equal, +inf pattern included
+    assert torch.equal(got, want)
+
+
+def test_knn_grid_kernel_bit_equal_with_valid_inf_points(cuda):
+    """Zero disparity back-projects to +-inf (nan where a pixel sits on the
+    principal point's row or column): blocks holding such a valid point
+    take the kernel's exact path; a window of mostly nan distances gives
+    nan, as torch.topk orders nan after +inf."""
+    cfg = config.munich_pipeline_config()
+    disp = torch.from_numpy(scene_pool(2, 256, 512, seed=1)[2] * np.float32(2048.0)).to(cuda)
+    disp[0, 150:170, 100:300] = 0.0
+    disp[1, 200:256, :] = 0.0
+    pts = camera.reproject_disparity(disp, cfg.camera).contiguous()
+    pts[1, 20:40, 30:90] = torch.tensor([float("inf"), float("inf"), float("-inf")], device=cuda)
+    valid = torch.ones((2, 256, 512), dtype=torch.bool, device=cuda)
+    valid[1, ::3] = False
+    got = knn_grid.knn_mean_distances_grid(pts, valid, 10, (5, 21))
+    want = knn_grid.knn_mean_distances_grid_plain(pts, valid, 10, (5, 21))
+    assert torch.equal(got.isnan(), want.isnan()) and bool(want.isnan().any())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
 
 
 def test_mad_kernel_matches_plain_bit_equal(cuda):
@@ -222,6 +242,76 @@ def test_exact_knn_kernel_matches_plain_bit_equal(cuda, k):
     assert torch.isinf(got[3]).all() and torch.isfinite(got[v]).all()
     # and the plain version on the CPU (IEEE sqrt and division for certain)
     assert torch.equal(got.cpu(), exact_knn.knn_mean_distances_exact_plain(x.cpu(), v.cpu(), k))
+
+
+def _scene_cloud(cuda):
+    """(1, 131072): every point of an analytic 256x512 scene, 1% of the rows
+    replaced by uniform outliers in a box around it."""
+    cfg = config.munich_pipeline_config()
+    disp = torch.from_numpy(scene_pool(1, 256, 512, seed=0)[2] * np.float32(2048.0)).to(cuda)
+    pts = camera.reproject_disparity(disp, cfg.camera).reshape(1, -1, 3).clone()
+    rng = np.random.default_rng(4)
+    rows = torch.from_numpy(rng.permutation(pts.shape[1])[:pts.shape[1] // 100]).to(cuda)
+    out = rng.uniform([-40, -10, -100], [40, 10, -4], size=(rows.numel(), 3)).astype(np.float32)
+    pts[0, rows] = torch.from_numpy(out).to(cuda)
+    return pts.contiguous(), torch.ones((1, pts.shape[1]), dtype=torch.bool, device=cuda)
+
+
+def _far_cloud(cuda):
+    """A 48x200 grid at cm spacing 150-250 m from the origin."""
+    rng = np.random.default_rng(3)
+    ys, xs = np.mgrid[:48, :200]
+    grid = np.stack([xs * 0.01, rng.normal(size=(48, 200)) * 0.002, ys * 0.01], -1)
+    xyz = (grid.reshape(1, -1, 3) + [120.0, -80.0, -150.0]).astype(np.float32)
+    valid = rng.random((1, 48 * 200)) < 0.9
+    return torch.from_numpy(xyz).to(cuda), torch.from_numpy(valid).to(cuda)
+
+
+@pytest.mark.parametrize("cloud", ["road", "scene", "far", "edge"])
+def test_exact_knn_skip_on_and_off_bit_equal(cuda, cloud):
+    """K4 with its box skip and deferral (skip=1), scanning everything
+    (skip=0) and the plain version agree bit for bit: the exact mode's road
+    clouds, a whole scene cloud with outliers, a cloud far from the origin
+    (where the margin decides), and the edge frames."""
+    xyz, valid = {"road": lambda: k4.road_clouds(8, 256, 512, 16384, cuda),
+                  "scene": lambda: _scene_cloud(cuda),
+                  "far": lambda: _far_cloud(cuda),
+                  "edge": lambda: tuple(torch.from_numpy(a).to(cuda) for a in _exact_knn_frames())
+                  }[cloud]()
+    want = exact_knn.knn_mean_distances_exact_plain(xyz, valid, 10)
+    assert torch.equal(exact_knn.knn_mean_distances_exact(xyz, valid, 10), want)
+    assert torch.equal(exact_knn.knn_mean_distances_exact(xyz, valid, 10, skip=False), want)
+
+
+def test_exact_knn_boxes_and_counts_match_the_emulated_schedule(cuda):
+    """The preparation kernel's boxes equal ``subtile_boxes``; the kernels'
+    counts (pairs of both walks, subtiles loaded and tested, deferred
+    queries) equal what ``torch_k4_schedule`` counts for the same clouds,
+    and their result equals the emulation's."""
+    xyz, valid = k4.road_clouds(device=cuda)
+    xyz[1, ::97] = torch.tensor([30.0, 5.0, -60.0], device=cuda)  # outliers to defer
+    b, c = valid.shape
+    scratch = torch.empty(exact_knn.scratch_words(b, c, 10), device=cuda)
+    out = torch.empty((b, c), device=cuda)
+    exact_knn._launch(xyz, valid, 10, True, scratch, out)
+    sub, grp = exact_knn.scratch_boxes(scratch, b, c)
+    want_sub, want_grp = exact_knn.subtile_boxes(xyz, valid)
+    assert torch.equal(sub, want_sub) and torch.equal(grp, want_grp)
+    emulated, counts = k4.emulate(xyz.cpu(), valid.cpu(), 10)
+    assert exact_knn.scratch_stats(scratch) == counts and counts["deferred"] > 0
+    assert torch.equal(out.cpu(), emulated)
+
+
+def test_exact_knn_makes_no_host_sync(cuda):
+    xyz, valid = k4.road_clouds(device=cuda)
+    exact_knn.knn_mean_distances_exact(xyz, valid, 10)  # builds and loads the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = exact_knn.knn_mean_distances_exact(xyz, valid, 10)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(out, exact_knn.knn_mean_distances_exact_plain(xyz, valid, 10))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):

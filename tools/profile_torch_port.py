@@ -41,14 +41,14 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 _PORT_KERNELS = ("knn_grid_kernel", "mad_cluster_kernel", "radius_prep_kernel", "radius_kernel",
-                 "exact_knn_kernel")
+                 "exact_knn_prep_kernel", "exact_knn_kernel", "exact_knn_far_kernel")
 _CONV_MARKS = ("conv", "cudnn", "xmma", "implicit", "fft", "dse::", "pointwise_mult_and_sum")
 
 
 def _group(name: str) -> str:
     low = name.lower()
     if any(k in name for k in _PORT_KERNELS):
-        return "port kernels (knn_grid, mad, radius and its preparation, exact_knn)"
+        return "port kernels (knn_grid, mad, radius and exact_knn with their preparations)"
     if any(k in low for k in _CONV_MARKS):
         return "convolutions (cuDNN)"
     if "gemm" in low or "cutlass" in low:

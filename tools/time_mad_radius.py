@@ -36,26 +36,6 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def device_ms(fn, iters, marks=None):
-    """(device ms of the kernels whose names hold one of ``marks``, or of
-    every kernel, per call; profiled wall ms per call) over ``iters`` calls."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(ev.time_range.elapsed_us() / 1e3 for ev in prof.events()
-               if ev.device_type.name == "CUDA"
-               and (marks is None or any(m in ev.name for m in marks)))
-    if busy == 0.0:
-        raise RuntimeError(f"no kernel matching {marks} ran")
-    return busy / iters, wall / iters
-
-
 def thresholds_per_row(thr, rows, dev):
     """A recorded threshold argument (float, pair or (R,) tensor) as (R,)."""
     t = thr if isinstance(thr, torch.Tensor) else torch.tensor(thr, dtype=torch.float32)
@@ -74,7 +54,8 @@ def main() -> int:
     from semantic_depth_tpu_torch.models import FCN8s, Monodepth
     from semantic_depth_tpu_torch.ops import _cuda, mad, radius
     from semantic_depth_tpu_torch.utils.bench_scenes import scene_pool
-    from semantic_depth_tpu_torch.utils.probes import cuda_ms, recording_kernel_calls, sync_debug
+    from semantic_depth_tpu_torch.utils.probes import (cuda_ms, device_ms, recording_kernel_calls,
+                                                       sync_debug)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
