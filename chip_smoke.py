@@ -36,7 +36,25 @@ either is missing or any check fails. Phases:
    and ``python -m semantic_depth_tpu_torch.utils.outlier_removal`` in a
    subprocess on a PLY of the phase-3 scene cloud, whose output must equal
    the file written from what the plain K4 and K3 versions keep on the
-   card; an info line says which image codecs (cv2, PIL, matplotlib) import.
+   card; an info line says which image codecs (cv2, PIL, matplotlib) import;
+7. the native full-resolution path: K1-K3 at the shapes of the geometry
+   tail of two 1024x2048 analytic scenes (K1 on (2, 1024, 2048), K2 on its
+   four launches of 2^21-point rows, K3 with the 1/16 pixel-scale weights,
+   three runs equal), each bit-equal to its plain version, with times and
+   bounds (run within phase 3); the same tail against the CPU plain path on
+   one scene within 1e-3 m and its rw MAE; ``process_batch`` of
+   ``build_pipeline(native_s2d=True)`` (vgg, full width, bfloat16) on 4
+   frames of 1024x2048, launches and frames/s; monodepth-resnet50
+   ``process_batch`` (batch 8, float32 and bfloat16) beside phase 5's vgg
+   rows, with the vgg path's launches;
+8. the CLIs as subprocesses on the card at full width: msgpack weights
+   written by ``models.weights.save_params`` from seeded full-width modules
+   (under ``chiprun_out/smoke_cli/``, removed afterwards), the single-frame
+   CLI with ``--save_data`` (every artifact of the suite) and with
+   ``--profile_stages`` (9 rows of stage times), and the sequence CLI over 8
+   scene PNGs with ``--batch 4``, then ``--native_s2d`` at 1024x2048 with
+   random weights (one overlay PNG and one ``_rw.ply`` a frame); process
+   seconds and seconds per frame.
 
 The second-to-last lines are the card's name and power limit and one JSON
 object with the kernels' numbers; the last line is
@@ -48,6 +66,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -630,14 +649,17 @@ def phase_geometry(dev, scenes, counters, stat_mode="grid"):
                 max_cuda_cpu_f2f_m=float(np.nanmax(np.abs(f2f_g - f2f_c))), road_kept=kept)
 
 
-def full_pipeline(dev, dtype_name, stat_mode):
-    """Full-size FCN-8s/VGG16 and monodepth-vgg with seeded random weights."""
+def full_pipeline(dev, dtype_name, stat_mode, encoder="vgg"):
+    """Full-size FCN-8s/VGG16 and monodepth (vgg or resnet50) with seeded
+    random weights."""
     from semantic_depth_tpu_torch import config, pipeline
+    from semantic_depth_tpu_torch.cli.common import apply_encoder_override
     from semantic_depth_tpu_torch.models import FCN8s, Monodepth
 
     dtype = torch.bfloat16 if dtype_name == "bfloat16" else torch.float32
     cfg = (exact_config if stat_mode == "exact" else config.munich_pipeline_config)(
         compute_dtype=dtype_name)
+    cfg = apply_encoder_override(cfg, encoder)
     torch.manual_seed(0)
     with torch.device(dev):
         fcn = FCN8s(num_classes=cfg.segmenter.num_classes, compute_dtype=dtype)
@@ -646,14 +668,15 @@ def full_pipeline(dev, dtype_name, stat_mode):
     return pipeline.SemanticDepthPipeline(cfg, fcn, mono, device=dev)
 
 
-def phase_end_to_end(dev, counters, frames, n_timed=7):
+def phase_end_to_end(dev, counters, frames, n_timed=7, runs=None):
     results = {}
-    for key, dtype_name, stat_mode in (("float32", "float32", "grid"),
-                                       ("bfloat16", "bfloat16", "grid"),
-                                       ("bfloat16_exact", "bfloat16", "exact")):
-        log(f"[phase 5] process_batch 8 x 1024x2048 uint8, compute_dtype {dtype_name}, "
-            f"stat_mode {stat_mode!r}")
-        pipe = full_pipeline(dev, dtype_name, stat_mode)
+    runs = runs or (("float32", "float32", "grid", "vgg"),
+                    ("bfloat16", "bfloat16", "grid", "vgg"),
+                    ("bfloat16_exact", "bfloat16", "exact", "vgg"))
+    for key, dtype_name, stat_mode, encoder in runs:
+        log(f"[phase {5 if encoder == 'vgg' else 7}] process_batch 8 x 1024x2048 uint8, "
+            f"monodepth {encoder}, compute_dtype {dtype_name}, stat_mode {stat_mode!r}")
+        pipe = full_pipeline(dev, dtype_name, stat_mode, encoder)
         cfg = pipe.config
         pipe.process_batch(frames)  # warm-up (cuDNN plans, kernel library load)
         torch.cuda.synchronize()
@@ -800,6 +823,262 @@ def phase_outlier_removal(dev, cloud):
                 plain_chain_ms=plain_ms)
 
 
+def native_config(**kw):
+    """munich_pipeline_config at the native full resolution 1024x2048."""
+    from semantic_depth_tpu_torch import config
+
+    return config.munich_pipeline_config(input_height=1024, input_width=2048, **kw)
+
+
+def knn_grid_bound(valid):
+    """K1's bound on these inputs (phase 3's rule): each point read and each
+    mean written once; each (valid pixel, valid candidate) pair at 28
+    operations plus 21 a valid pixel for its selection."""
+    b, h, w = valid.shape
+    cand = torch.nn.functional.conv2d(
+        valid.float()[:, None], torch.ones((1, 1, 5, 21), device=valid.device),
+        padding=(2, 10))[:, 0]
+    n_ops = float((cand * valid).sum()) * 28.0 + float(valid.sum()) * 21.0
+    return bound_ms(b * h * w * (12 + 1 + 4), n_ops)
+
+
+def phase_native_kernels(dev):
+    """K1-K3 at the native path's own launches: the geometry tail of two
+    1024x2048 analytic scenes, recorded, each call against its plain
+    version; then the same tail on the CPU plain path for one scene."""
+    from semantic_depth_tpu_torch import pipeline
+    from semantic_depth_tpu_torch.models import FCN8s, Monodepth
+    from semantic_depth_tpu_torch.ops import knn_grid, mad, radius
+    from semantic_depth_tpu_torch.utils.probes import cuda_ms, recording_kernel_calls
+
+    log("[phase 3] native shapes: the geometry tail of two 1024x2048 analytic scenes")
+    scenes = scene_batch(2, 1024, 2048, seed=7, dev=dev)
+    cfg = native_config()
+    cam, _ = pipeline._scaled_camera(cfg, cfg.camera.focal)
+    args = [scenes[k] for k in ("small", "road", "fence", "disp")]
+    # the geometry tail does not touch the networks: tiny ones will do
+    pipes = {d: pipeline.SemanticDepthPipeline(
+        cfg, FCN8s(width_mult=0.0625, fc_channels=32), Monodepth(width_mult=0.0625), device=d)
+        for d in (dev, "cpu")}
+    with torch.inference_mode(), recording_kernel_calls() as calls:
+        out = pipes[dev]._batch_geometry(*args, cam)
+    torch.cuda.synchronize()
+    rows = {}
+
+    (pts, valid, k, window), = calls["knn_grid"]
+    check(tuple(pts.shape) == (2, 1024, 2048, 3), "K1 native launch: points (2, 1024, 2048, 3)")
+    got = knn_grid.knn_mean_distances_grid(pts, valid, k, window)
+    want = knn_grid.knn_mean_distances_grid_plain(pts, valid, k, window)
+    torch.cuda.synchronize()
+    check(torch.equal(got.isnan(), want.isnan()) and torch.equal(got.nan_to_num(),
+                                                                 want.nan_to_num()),
+          f"K1 native (2, 1024, 2048) bit-equal to the plain version "
+          f"({int(torch.isfinite(want).sum())} finite)")
+    t_bound, by = knn_grid_bound(valid)
+    rows["knn_grid"] = dict(
+        shape="points (2, 1024, 2048, 3), k=10, window (5, 21)",
+        ms=cuda_ms(lambda: knn_grid.knn_mean_distances_grid(pts, valid, k, window)),
+        plain_ms=cuda_ms(lambda: knn_grid.knn_mean_distances_grid_plain(pts, valid, k, window),
+                         iters=3, warmup=1),
+        bound_ms=t_bound, bound_by=by, max_abs_err=0.0)
+
+    shapes = [tuple(a[0].shape) for a in calls["mad"]]
+    check(shapes == [(2, 1 << 21)] * 3 + [(4, 1 << 21)],
+          f"K2 native launches recorded: {shapes}")
+    launches = []
+    for values, valids, thr in calls["mad"]:
+        thr_rows = mad.threshold_rows(thr, values.shape[0], dev)
+        got = mad.mad_keep_mask(values, valids, thr)
+        want = mad.mad_keep_mask_plain(values, valids, thr_rows)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K2 native launch of {values.shape[0]} rows of 2^21, "
+              f"thresholds {thr}: bit-equal ({int(want.sum())} kept)")
+        launches.append(dict(
+            rows=values.shape[0], thresholds=thr,
+            ms=cuda_ms(lambda: mad.mad_keep_mask(values, valids, thr), iters=10),
+            plain_ms=cuda_ms(lambda: mad.mad_keep_mask_plain(values, valids, thr_rows),
+                             iters=3, warmup=1)))
+    n_vals = sum(a[0].numel() for a in calls["mad"])
+    t_bound, by = bound_ms(n_vals * (4 + 1 + 1), n_vals * 37.0)
+    rows["mad"] = dict(shape="the native tail's four launches: 2, 2, 2 and 4 rows of 2^21 (sums)",
+                       ms=sum(x["ms"] for x in launches),
+                       plain_ms=sum(x["plain_ms"] for x in launches),
+                       bound_ms=t_bound, bound_by=by, max_abs_err=0.0, launches_timed=launches)
+
+    (xyz, pv, wts, r), = calls["radius"]
+    dyadic = bool((wts[pv] * 16 == torch.round(wts[pv] * 16)).all())
+    check(tuple(xyz.shape) == (2, 16384, 3) and dyadic,
+          f"K3 native launch: (2, 16384), weights in 1/16 steps, {pv.sum(-1).tolist()} valid")
+    runs = [radius.radius_counts(xyz, pv, wts, r) for _ in range(3)]
+    want = radius.radius_counts_plain(xyz, pv, wts, r)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, runs[0]) for x in runs) and torch.equal(runs[0], want),
+          "K3 native: three runs equal, bit-equal to the plain version")
+    pairs, _ = radius_pairs(xyz, pv, r)
+    t_bound, by = bound_ms(2 * 16384 * (12 + 1 + 4 + 4), pairs * 10.0)
+    rows["radius"] = dict(
+        shape="xyz (2, 16384, 3), weights / 16, r=0.5",
+        ms=cuda_ms(lambda: radius.radius_counts(xyz, pv, wts, r)),
+        plain_ms=cuda_ms(lambda: radius.radius_counts_plain(xyz, pv, wts, r), iters=3, warmup=1),
+        bound_ms=t_bound, bound_by=by, max_abs_err=0.0, pairs_needed=pairs)
+    for name, row in rows.items():
+        log(f"  {name} native: {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+
+    t0 = time.time()
+    with torch.inference_mode():
+        out_cpu = pipes["cpu"]._batch_geometry(*[a[:1].cpu() for a in args], cam)
+    cpu_s = time.time() - t0
+    rw_g, f2f_g = out.dist_rw.cpu().numpy(), out.dist_f2f.cpu().numpy()
+    rw_c, f2f_c = out_cpu.dist_rw.numpy(), out_cpu.dist_f2f.numpy()
+    log(f"  native tail: dist_rw cuda {rw_g.tolist()} cpu {rw_c.tolist()}; dist_f2f cuda "
+        f"{f2f_g.tolist()} cpu {f2f_c.tolist()} (CPU {cpu_s:.1f} s for one scene)")
+    check(np.allclose(rw_g[:1], rw_c, atol=1e-3, rtol=0, equal_nan=True)
+          and np.allclose(f2f_g[:1], f2f_c, atol=1e-3, rtol=0, equal_nan=True),
+          "native tail: scene 0 on the card within 1e-3 m of the CPU plain path")
+    rw_mae = float(np.mean(np.abs(rw_g - scenes["rw_true"])))
+    check(np.isfinite(rw_mae) and rw_mae < 0.1, f"native tail: rw MAE {rw_mae:.4f} m < 0.1 m")
+    geometry = dict(rw_mae_m=rw_mae, f2f_mae_m=float(np.mean(np.abs(f2f_g - scenes["f2f_true"]))),
+                    max_cuda_cpu_rw_m=float(np.nanmax(np.abs(rw_g[:1] - rw_c))),
+                    cpu_s_one_scene=cpu_s)
+    return rows, geometry
+
+
+def phase_native_end_to_end(dev, counters, frames, n_timed=7):
+    """``build_pipeline(native_s2d=True)``: the input_s2d networks at full
+    width on 1024x2048 frames, bfloat16, no flip-average pass."""
+    from semantic_depth_tpu_torch.cli.common import build_pipeline
+
+    log("[phase 7] native process_batch 4 x 1024x2048 uint8, vgg, bfloat16")
+    pipe = build_pipeline(native_config(compute_dtype="bfloat16"), "random", "random",
+                          native_s2d=True, device=dev)
+    check(pipe.fcn.input_s2d and pipe.mono.input_s2d
+          and pipe.config.monodepth.flip_average is False,
+          "native pipeline: input_s2d networks, flip-average off")
+    batch = frames[:4]
+    pipe.process_batch(batch)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    out = pipe.process_batch(batch)
+    torch.cuda.synchronize()
+    counts = read_counts(counters)
+    check(counts == GRID_LAUNCHES, f"native launches per batch {counts}")
+    check(out.disparity.shape == (4, 1024, 2048) and bool(torch.isfinite(out.disparity).all()),
+          "native disparity (4, 1024, 2048) finite")
+    check(out.points3d.shape == (4, 1024, 2048, 3) and out.road_cloud.xyz.shape == (4, 16384, 3),
+          "native points3d (4, 1024, 2048, 3), road cloud (4, 16384)")
+    times = []
+    for _ in range(n_timed):
+        t0 = time.perf_counter()
+        pipe.process_batch(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    log(f"  native: median {med * 1e3:.2f} ms per batch of 4 -> {4.0 / med:.2f} frames/s")
+    del pipe, out
+    torch.cuda.empty_cache()
+    return dict(batch_s_median=med, frames_per_s=4.0 / med, batch_s_all=times, launches=counts)
+
+
+def _run_cli(name, args, repo):
+    """One CLI as a subprocess on the card; its failure fails the run."""
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=repo, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True, timeout=600)
+    secs = time.time() - t0
+    log(f"  {name}: {secs:.2f} s as a process\n    "
+        + "\n    ".join(proc.stdout.strip().splitlines()[-3:]))
+    check(proc.returncode == 0, f"{name} exits 0")
+    return secs, proc.stdout
+
+
+def phase_clis(dev, frames):
+    """Both CLIs as subprocesses at full width, on msgpack weights written by
+    the port's save_params from seeded full-width modules."""
+    import cv2
+
+    from semantic_depth_tpu_torch.models import FCN8s, Monodepth
+    from semantic_depth_tpu_torch.models.from_flax import flax_from_module
+    from semantic_depth_tpu_torch.models.weights import save_params
+
+    log("[phase 8] the CLIs as subprocesses on the card")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(repo, "chiprun_out", "smoke_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    wdir, fdir = os.path.join(work, "weights"), os.path.join(work, "frames")
+    os.makedirs(wdir)
+    os.makedirs(fdir)
+    try:
+        t0 = time.time()
+        with torch.device(dev):
+            torch.manual_seed(0)
+            fcn = FCN8s()
+            torch.manual_seed(1)
+            mono = Monodepth()
+        save_params(flax_from_module(fcn), os.path.join(wdir, "fcn8s.msgpack"))
+        save_params(flax_from_module(mono), os.path.join(wdir, "monodepth.msgpack"))
+        del fcn, mono
+        write_s = time.time() - t0
+        mb = sum(os.path.getsize(os.path.join(wdir, f)) for f in os.listdir(wdir)) / 2**20
+        log(f"  weights written in {write_s:.1f} s ({mb:.0f} MiB)")
+        paths = []
+        for i, img in enumerate(frames.cpu().numpy()):
+            paths.append(os.path.join(fdir, f"scene_{i}.png"))
+            cv2.imwrite(paths[-1], img)
+        sd = "semantic_depth_tpu_torch.cli.semantic_depth"
+        seq = "semantic_depth_tpu_torch.cli.sequence"
+        weights = ["--semantic_model", wdir, "--monodepth_checkpoint", wdir]
+        res = {}
+
+        single = os.path.join(work, "single")
+        secs, _ = _run_cli("single frame --save_data", [sd, "--input_frame", paths[0], *weights,
+                                                         "--save_data", "--results_dir", single],
+                           repo)
+        base = os.path.join(single, "scene_0", "scene_0_output")
+        suffixes = [".png", "_only_segmentation.png", "_disp.png", "_road_mask.png",
+                    "_fence_mask.png", "_raw.ply", "_pointCloud.npz", "_ROAD.ply", "_ALL.ply",
+                    "_times.txt", "_distances.txt"]
+        missing = [s for s in suffixes if not os.path.exists(base + s)]
+        check(not missing, f"single frame: every artifact of the suite written (missing {missing})")
+        dist = [float(ln.split(":")[1]) for ln in open(base + "_distances.txt").read().splitlines()]
+        check(len(dist) == 2, f"single frame: _distances.txt parses ({dist})")
+        t_global = float(open(base + "_times.txt").read().splitlines()[-1].split(":")[1])
+        res["single_save_data"] = dict(process_s=secs, frame_s=t_global, distances=dist)
+
+        staged = os.path.join(work, "staged")
+        secs, _ = _run_cli("single frame --profile_stages",
+                           [sd, "--input_frame", paths[1], *weights, "--profile_stages",
+                            "--results_dir", staged], repo)
+        rows = open(os.path.join(staged, "scene_1", "scene_1_output_times.txt")).read()
+        times = {ln.split(":")[0]: float(ln.split(":")[1]) for ln in rows.splitlines()}
+        check(len(times) == 9 and all(times[f"Time {k}"] > 0 for k in
+                                      ("semantic", "disparity", "to3D", "road", "rw", "global")),
+              f"--profile_stages: 9 rows, stage times nonzero ({times})")
+        res["single_profile_stages"] = dict(process_s=secs, times_s=times)
+
+        for key, extra in (("sequence_batch4", weights),
+                           ("sequence_native_batch4",
+                            ["--native_s2d", "--input_height", "1024", "--input_width", "2048",
+                             "--semantic_model", "random", "--monodepth_checkpoint", "random"])):
+            out_dir = os.path.join(work, key)
+            secs, text = _run_cli(key, [seq, "--input_folder", os.path.join(fdir, "*.png"),
+                                        *extra, "--batch", "4", "--results_dir", out_dir,
+                                        "--output_name", "seq"], repo)
+            imgs = sorted(os.listdir(os.path.join(out_dir, "seq", "result_sequence_imgs")))
+            plys = sorted(os.listdir(os.path.join(out_dir, "seq", "result_sequence_ply")))
+            check(imgs == [f"scene_{i}.png" for i in range(8)]
+                  and plys == [f"scene_{i}_rw.ply" for i in range(8)],
+                  f"{key}: one overlay PNG and one _rw.ply a frame")
+            summary = text.strip().splitlines()[-1].split()
+            res[key] = dict(process_s=secs, loop_s=float(summary[3]),
+                            frame_s=float(summary[3]) / 8.0, process_frame_s=secs / 8.0)
+        res["weights_write_s"] = write_s
+        res["weights_mib"] = mb
+    finally:
+        shutil.rmtree(work, ignore_errors=True)  # 660 MB of weights: none of it kept
+    return res
+
+
 def codec_info():
     """Which image codecs import on this host (information, not a check)."""
     code = ("import importlib\n"
@@ -847,6 +1126,7 @@ def main() -> int:
     with torch.inference_mode():
         rows = phase_kernels(dev, scenes)
         rows["exact_knn"], scene_cloud = phase_exact_knn(dev, scenes)
+        native_rows, native_geom = phase_native_kernels(dev)
     geom = {mode: phase_geometry(dev, scenes, counters, mode) for mode in ("grid", "exact")}
     from semantic_depth_tpu_torch.utils.bench_scenes import scene_pool
 
@@ -856,10 +1136,22 @@ def main() -> int:
                  outlier_removal=phase_outlier_removal(dev, scene_cloud),
                  codecs=codec_info())
 
+    native = dict(geometry=native_geom,
+                  end_to_end=phase_native_end_to_end(dev, counters, frames))
+    e2e.update(phase_end_to_end(dev, counters, frames, runs=(
+        ("resnet50_float32", "float32", "grid", "resnet50"),
+        ("resnet50_bfloat16", "bfloat16", "grid", "resnet50"))))
+    check(e2e["resnet50_float32"]["launches"] == e2e["float32"]["launches"],
+          "resnet50 launches per batch equal the vgg path's")
+    entry["clis"] = phase_clis(dev, frames)
+
     for name, row in rows.items():
         row["launches"] = e2e["bfloat16_exact" if name == "exact_knn" else "float32"][
             "launches"][name]
-    summary = dict(card=smi, build_s=build_s, geometry=geom, end_to_end=e2e,
+        if name in native_rows:
+            row["native"] = dict(native_rows[name],
+                                 launches=native["end_to_end"]["launches"][name])
+    summary = dict(card=smi, build_s=build_s, geometry=geom, end_to_end=e2e, native=native,
                    entry_points=entry, kernels=list(rows.values()),
                    wall_s=time.time() - t_start)
     log("summary: " + json.dumps(summary))

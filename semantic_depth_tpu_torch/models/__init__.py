@@ -1,4 +1,5 @@
-"""Networks of the PyTorch port: FCN-8s (VGG16) and Monodepth (vgg)."""
+"""Networks of the PyTorch port: FCN-8s (VGG16) and Monodepth (vgg, resnet50),
+each with its native full-resolution ``input_s2d`` variant."""
 
 from .fcn8s import FCN8s
 from .monodepth import Monodepth, flip_average_postprocess

@@ -10,6 +10,11 @@ For kernel k and stride s, SAME pads the dilated input by
 ``ceil((k + s - 2) / 2)`` on each side, which is torch's ``padding = k - 1 -
 that``: 1 for the 4x4/2 upsamplers and 4 for the 16x16/8 one. The kernel
 needs no flip (``from_flax`` only permutes its axes).
+
+``input_s2d=True`` is the native full-resolution variant: the input is 2x2
+space-to-depth packed (12 channels into ``conv1_1``), the trunk runs on the
+half-resolution grid, and ``upscore8`` emits the four pixel phases as
+channel groups that ``depth_to_space`` puts back at the input resolution.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.s2d import depth_to_space, space_to_depth
 
 # VGG16 conv stacks: (num convs, channels) per block; pools between blocks.
 _VGG_BLOCKS: Sequence[tuple] = ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512))
@@ -38,12 +45,11 @@ class FCN8s(nn.Module):
         input_s2d: bool = False,
     ):
         super().__init__()
-        if input_s2d:
-            raise NotImplementedError("FCN8s(input_s2d=True) is not ported yet")
+        self.input_s2d = input_s2d
         self.compute_dtype = compute_dtype
         self.num_classes = num_classes
         self.convs = []
-        in_ch = 3
+        in_ch = 12 if input_s2d else 3
         for bi, (n_convs, ch) in enumerate(_VGG_BLOCKS, start=1):
             ch = max(1, int(ch * width_mult))
             names = []
@@ -63,11 +69,15 @@ class FCN8s(nn.Module):
         self.score_pool3 = nn.Conv2d(pool3_ch, nc, 1)
         self.upscore2 = nn.ConvTranspose2d(nc, nc, 4, stride=2, padding=1)
         self.upscore4 = nn.ConvTranspose2d(nc, nc, 4, stride=2, padding=1)
-        self.upscore8 = nn.ConvTranspose2d(nc, nc, 16, stride=8, padding=4)
+        self.upscore8 = nn.ConvTranspose2d(nc, 4 * nc if input_s2d else nc, 16, stride=8,
+                                           padding=4)
         self.to(compute_dtype)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        x = images.to(self.compute_dtype).permute(0, 3, 1, 2)
+        x = images.to(self.compute_dtype)
+        if self.input_s2d:
+            x = space_to_depth(x)  # (B, H/2, W/2, 12)
+        x = x.permute(0, 3, 1, 2)
         skips = {}
         for bi, names in enumerate(self.convs, start=1):
             for name in names:
@@ -81,5 +91,7 @@ class FCN8s(nn.Module):
         x = F.relu(self.fc7(x))  # H/32
         fuse4 = self.upscore2(self.score_fc7(x)) + self.score_pool4(skips["pool4"])
         fuse3 = self.upscore4(fuse4) + self.score_pool3(skips["pool3"])
-        up8 = self.upscore8(fuse3)
-        return up8.permute(0, 2, 3, 1).float()
+        up8 = self.upscore8(fuse3).permute(0, 2, 3, 1)
+        if self.input_s2d:
+            up8 = depth_to_space(up8)
+        return up8.float()

@@ -9,6 +9,8 @@ Input is the flax variable tree as nested dicts of numpy arrays
   and compute the same gradient-of-conv, so only the axes move.
 
 Both are ``permute(3, 2, 0, 1)``. Biases carry over as they are.
+``flax_from_module`` maps the other way, for writing weight files that the
+JAX package reads.
 """
 
 from __future__ import annotations
@@ -43,3 +45,16 @@ def load_flax(module: torch.nn.Module, variables: Mapping[str, Any]) -> torch.nn
     The tensors are cast to the module's dtype and device on copy."""
     module.load_state_dict(state_dict_from_flax(variables), strict=True)
     return module
+
+
+def flax_from_module(module: torch.nn.Module) -> Dict[str, Any]:
+    """The inverse of ``state_dict_from_flax``: ``{"params": {layer:
+    {"kernel", "bias"}}}`` of float32 numpy arrays, kernels back in flax's
+    layout (``permute(2, 3, 1, 0)``)."""
+    params: Dict[str, Any] = {}
+    for name, tensor in module.state_dict().items():
+        layer, kind = name.rsplit(".", 1)
+        t = tensor.detach().float().cpu()
+        leaf = t.permute(2, 3, 1, 0).contiguous() if kind == "weight" else t
+        params.setdefault(layer, {})["kernel" if kind == "weight" else "bias"] = leaf.numpy()
+    return {"params": params}

@@ -21,7 +21,7 @@ Reference-semantics notes (kept deliberately, see the JAX module):
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -104,6 +104,41 @@ def masked_median(values: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         + sorted_vals.gather(-1, hi[..., None])[..., 0]
     )
     return torch.where(n > 0, med, float("nan"))
+
+
+_U32 = 0xFFFFFFFF
+_SIGN = 0x80000000
+
+
+def _f32_to_ordered(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int64 in [0, 2^32) whose integer order is the float order
+    (the IEEE-754 total-order map of the JAX module, in int64 because torch
+    has little uint32 arithmetic)."""
+    bits = x.float().contiguous().view(torch.int32).long() & _U32
+    return torch.where(bits >= _SIGN, ~bits & _U32, bits | _SIGN)
+
+
+def _ordered_to_f32(u: torch.Tensor) -> torch.Tensor:
+    bits = torch.where(u < _SIGN, ~u & _U32, u & 0x7FFFFFFF)
+    return torch.where(bits >= _SIGN, bits - (1 << 32), bits).int().view(torch.float32)
+
+
+def masked_kth_smallest(values: torch.Tensor, valid: torch.Tensor, k) -> torch.Tensor:
+    """Exact k-th smallest (0-based) valid element of the last axis, by the
+    JAX function's 32-step binary search over the ordered bit space (one
+    masked count a step). ``k`` is an int or a tensor over the leading
+    dimensions; nan when fewer than k + 1 points are valid."""
+    u = _f32_to_ordered(values)
+    lead = values.shape[:-1]
+    lo = torch.zeros(lead, dtype=torch.int64, device=values.device)
+    hi = torch.full(lead, _U32, dtype=torch.int64, device=values.device)
+    k = torch.as_tensor(k, device=values.device)
+    for _ in range(32):
+        mid = lo + (hi - lo) // 2
+        count = ((u <= mid[..., None]) & valid).sum(-1)
+        take_left = count >= k + 1
+        lo, hi = torch.where(take_left, lo, mid + 1), torch.where(take_left, mid, hi)
+    return _ordered_to_f32(lo)
 
 
 # ---------------------------------------------------------------------------
@@ -268,6 +303,98 @@ def distance_3d(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sqrt((d * d).sum(-1))
 
 
+def _wlsq(x_e: torch.Tensor, z_e: torch.Tensor, weight: torch.Tensor):
+    """Weighted least squares x = alpha + beta * z over the last axis; the
+    weighted mean where the rows span less than one distinct z."""
+    sw = weight.sum(-1)
+    sz = (weight * z_e).sum(-1)
+    sx = (weight * x_e).sum(-1)
+    szz = (weight * z_e * z_e).sum(-1)
+    szx = (weight * z_e * x_e).sum(-1)
+    det = sw * szz - sz * sz
+    beta = torch.where(det.abs() > 1e-6, (sw * szx - sz * sx) / det, 0.0)
+    alpha = (sx - beta * sz) / torch.clamp(sw, min=1.0)
+    return alpha, beta
+
+
+def _edge_fit_at(x_e, wz_e, weight, z_eval):
+    """Two-pass robust line fit of the JAX function's ``fit_at``: least
+    squares, drop rows further than max(4.4478 MAD, 0.05 m) from the median
+    residual, refit when two or more rows survive."""
+    x_e = torch.where(weight > 0, x_e, 0.0)
+    z_e = torch.where(weight > 0, -wz_e, 0.0)
+    a1, b1 = _wlsq(x_e, z_e, weight)
+    r = x_e - (a1[..., None] + b1[..., None] * z_e)
+    ok = (weight > 0) & ~r.isnan()
+    med = masked_median(r, ok)
+    dev = (r - med[..., None]).abs()
+    gate = torch.maximum(4.4478 * masked_median(dev, ok & ~dev.isnan()), dev.new_tensor(0.05))
+    w2 = weight * (dev <= gate[..., None])
+    wf = torch.where((w2.sum(-1) >= 2)[..., None], w2, weight)
+    a2, b2 = _wlsq(x_e, z_e, wf)
+    return a2 + b2 * z_eval
+
+
+def plane_edge_width(
+    road_mask: torch.Tensor,
+    road_plane: torch.Tensor,
+    cx, cy, focal,
+    depth,
+    halfwidth: float = 0.5,
+    meas_range: Optional[torch.Tensor] = None,
+    range_tol: float = 0.25,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Road width from the fitted plane and the mask's edges (the JAX
+    function's grid estimator): each pixel ray meets the road plane
+    (..., 4) = (a, -1, c, d0), each image row's outermost road pixel widens
+    half a pixel footprint outward, and each side line-fits x(z) over the
+    rows whose edge lies within ``halfwidth`` of ``depth``, evaluated at
+    z = -depth. ``meas_range`` (..., H, W), when given, drops pixels whose
+    measured range is further than ``range_tol`` from the plane's.
+
+    road_mask (..., H, W). Returns (left (..., 3), right (..., 3), found,
+    width); nan when either side has no row in the slab."""
+    h, w = road_mask.shape[-2:]
+    dev = road_plane.device
+    a = road_plane[..., 0, None, None]
+    c = road_plane[..., 2, None, None]
+    d0 = road_plane[..., 3, None, None]
+    f = torch.as_tensor(focal, dtype=torch.float32, device=dev)
+    u = torch.arange(w, dtype=torch.float32, device=dev)[None, :] - cx
+    v = cy - torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    denom = v - a * u + c * f
+    wz = d0 * f / denom
+    xhat = u * wz / f
+    valid_px = road_mask & torch.isfinite(wz) & (wz > 0.0)
+    if meas_range is not None:
+        valid_px = valid_px & torch.isfinite(meas_range) & ((meas_range - wz).abs() < range_tol)
+
+    li = torch.where(valid_px, xhat, float("inf")).argmin(-1, keepdim=True)
+    ri = torch.where(valid_px, xhat, float("-inf")).argmax(-1, keepdim=True)
+    row_any = valid_px.any(-1)
+    wz_l, wz_r = wz.gather(-1, li)[..., 0], wz.gather(-1, ri)[..., 0]
+    x_l = xhat.gather(-1, li)[..., 0] - 0.5 * wz_l / f
+    x_r = xhat.gather(-1, ri)[..., 0] + 0.5 * wz_r / f
+
+    def in_slab(z):
+        return (z > depth - halfwidth) & (z < depth + halfwidth)
+
+    wgt_l = (row_any & in_slab(wz_l)).float()
+    wgt_r = (row_any & in_slab(wz_r)).float()
+    z_eval = -torch.tensor(float(depth), dtype=torch.float32, device=dev)
+    xl = _edge_fit_at(x_l, wz_l, wgt_l, z_eval)
+    xr = _edge_fit_at(x_r, wz_r, wgt_r, z_eval)
+    found = (wgt_l.sum(-1) >= 1) & (wgt_r.sum(-1) >= 1)
+    width = torch.where(found, xr - xl, float("nan"))
+    a, c, d0 = a[..., 0, 0], c[..., 0, 0], d0[..., 0, 0]
+
+    def point(x):
+        pt = torch.stack([x, a * x + c * z_eval + d0, z_eval.expand_as(x)], -1)
+        return torch.where(found[..., None], pt, float("nan"))
+
+    return point(xl), point(xr), found, width
+
+
 def plane_edge_width_cloud(
     cloud: MaskedCloud,
     road_plane: torch.Tensor,
@@ -363,3 +490,41 @@ def _ranked_rows(csum: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     callers mask rows past the last kept point invalid."""
     src = torch.searchsorted(csum, targets, side="left")
     return torch.clamp(src, max=csum.shape[-1] - 1)
+
+
+def select_slab_priority(
+    cloud: MaskedCloud, capacity: int, axis: int, lo, hi
+) -> Tuple[MaskedCloud, torch.Tensor]:
+    """Reduce the mask to about ``capacity`` points: every point with coord
+    in (lo, hi) (the road-width slab) and an even stride-subsample of the
+    rest. Returns (cloud, out_stride (...)); out_stride 1 keeps everything."""
+    x = cloud.xyz[..., axis]
+    in_slab = cloud.valid & (x > lo) & (x < hi)
+    out = cloud.valid & ~in_slab
+    n_in = in_slab.sum(-1, keepdim=True, dtype=torch.int32)
+    out_idx = torch.cumsum(out.int(), -1, dtype=torch.int32) - 1
+    n_out = out_idx[..., -1:] + 1
+    room = torch.clamp(capacity - n_in, min=1)
+    stride_out = torch.clamp(_floordiv(n_out + room - 1, room), min=1)
+    sel = in_slab | (out & (out_idx % stride_out == 0))
+    return cloud.with_mask(sel), stride_out[..., 0]
+
+
+def compact_stride(cloud: MaskedCloud, capacity: int) -> torch.Tensor:
+    """The stride ``compact`` subsamples with: 1 when the valid count fits
+    ``capacity``, else ceil(n / capacity)."""
+    return torch.clamp(_floordiv(cloud.count() + capacity - 1, capacity), min=1)
+
+
+def compact(cloud: MaskedCloud, capacity: int) -> MaskedCloud:
+    """Pack the valid points into the first ``capacity`` slots in row order;
+    past ``capacity`` valid points keep every ``compact_stride``-th one."""
+    csum = torch.cumsum(cloud.valid.int(), -1, dtype=torch.int32)
+    n = csum[..., -1:]
+    stride = torch.clamp(_floordiv(n + capacity - 1, capacity), min=1)
+    kept = _floordiv(n + stride - 1, stride)
+    slots = torch.arange(capacity, dtype=torch.int32, device=csum.device)
+    src = _ranked_rows(csum.contiguous(), (slots * stride + 1).contiguous())
+    idx = src[..., None].expand(src.shape + (3,))
+    return MaskedCloud(xyz=cloud.xyz.gather(-2, idx), rgb=cloud.rgb.gather(-2, idx),
+                       valid=slots < kept)

@@ -61,13 +61,14 @@ class FrameOutputs:
     fence_right_valid: torch.Tensor  # (h*w,) bool
 
     def frame(self, i: int) -> "FrameOutputs":
-        """The i-th frame of a batched result."""
+        """The i-th frame of a batched result (tensors or numpy arrays; a
+        field left None stays None)."""
         fields = {}
         for f in dataclasses.fields(self):
             val = getattr(self, f.name)
             if isinstance(val, pcl.MaskedCloud):
                 val = pcl.MaskedCloud(val.xyz[i], val.rgb[i], val.valid[i])
-            else:
+            elif val is not None:
                 val = val[i]
             fields[f.name] = val
         return FrameOutputs(**fields)

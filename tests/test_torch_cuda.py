@@ -19,7 +19,7 @@ from semantic_depth_tpu_torch.io.ply import PlyCloud
 from semantic_depth_tpu_torch.ops import exact_knn, knn_grid, mad, radius
 from semantic_depth_tpu_torch.utils import outlier_removal
 from semantic_depth_tpu_torch.utils.bench_scenes import scene_pool
-from semantic_depth_tpu_torch.utils.probes import sync_debug
+from semantic_depth_tpu_torch.utils.probes import recording_kernel_calls, sync_debug
 
 import torch_k4_schedule as k4
 
@@ -451,3 +451,60 @@ def test_filter_ply_on_the_card_writes_what_the_cpu_writes(cuda, tmp_path):
     want = outlier_removal.filter_ply(src, str(tmp_path / "cpu.ply"), device="cpu", **kw)
     with open(got, "rb") as a, open(want, "rb") as b:
         assert a.read() == b.read()
+
+
+def _equal_nan(a, b):
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
+
+
+def test_kernels_bit_equal_at_the_native_frame_program_launches(cuda):
+    """The geometry tail of the native 1024x2048 frame program on two
+    analytic scenes: K1 on (2, 1024, 2048), K2 on its four launches of
+    2^21-point rows, K3 on the compacted clouds with weights divided by the
+    pixel scale 16, each call bit-equal to its plain version (K3 on three
+    runs)."""
+    imgs, labels, disp_norm = scene_pool(2, 1024, 2048, seed=7)[:3]
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        imgs.astype(np.float32), labels == 7, labels == 13, disp_norm * np.float32(8192.0))]
+    cfg = config.munich_pipeline_config(input_height=1024, input_width=2048)
+    cam, _ = pipeline._scaled_camera(cfg, cfg.camera.focal)
+    pipe = pipeline.SemanticDepthPipeline(
+        cfg, FCN8s(width_mult=0.0625, fc_channels=32), Monodepth(width_mult=0.0625), device=cuda)
+    with torch.inference_mode(), recording_kernel_calls() as calls:
+        out = pipe._batch_geometry(*args, cam)
+    assert bool(out.rw_found.all())
+    (pts, valid, k, window), = calls["knn_grid"]
+    assert pts.shape == (2, 1024, 2048, 3)
+    assert _equal_nan(knn_grid.knn_mean_distances_grid(pts, valid, k, window),
+                      knn_grid.knn_mean_distances_grid_plain(pts, valid, k, window))
+    assert [tuple(a[0].shape) for a in calls["mad"]] == [(2, 1 << 21)] * 3 + [(4, 1 << 21)]
+    for vals, ok, thr in calls["mad"]:
+        want = mad.mad_keep_mask_plain(vals, ok, mad.threshold_rows(thr, vals.shape[0], cuda))
+        assert torch.equal(mad.mad_keep_mask(vals, ok, thr), want)
+    (xyz, v, w, r), = calls["radius"]
+    assert xyz.shape == (2, 16384, 3) and bool((w[v] * 16 == torch.round(w[v] * 16)).all())
+    runs = [radius.radius_counts(xyz, v, w, r) for _ in range(3)]
+    assert all(torch.equal(x, runs[0]) for x in runs[1:])
+    assert torch.equal(runs[0], radius.radius_counts_plain(xyz, v, w, r))
+
+
+def test_single_frame_cli_on_the_card(tmp_path):
+    """The single-frame entry point on its default device with tiny random
+    networks: the artifact suite, through the kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the CLIs run on the card by default)")
+    import cv2
+
+    from semantic_depth_tpu_torch.cli import semantic_depth
+
+    frame = tmp_path / "scene.png"
+    cv2.imwrite(str(frame), scene_pool(1, 384, 768, seed=5)[0][0])
+    before = [fn.launches for fn in _COUNTERS]
+    semantic_depth.main(["--input_frame", str(frame), "--semantic_model", "random",
+                         "--monodepth_checkpoint", "random", "--dev_tiny", "--save_data",
+                         "--results_dir", str(tmp_path / "results")])
+    assert [a - b for a, b in zip((fn.launches for fn in _COUNTERS), before)] == [1, 4, 1, 0]
+    out = tmp_path / "results" / "scene"
+    for suffix in (".png", "_disp.png", "_raw.ply", "_pointCloud.npz", "_ROAD.ply", "_ALL.ply",
+                   "_times.txt", "_distances.txt"):
+        assert (out / f"scene_output{suffix}").exists(), suffix

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no JAX, flax or optax, and nothing of the
-JAX package ``semantic_depth_tpu``."""
+"""The PyTorch port stands alone: no JAX, flax, optax, msgpack or matplotlib
+(the card host has neither of the last two), and nothing of the JAX package
+``semantic_depth_tpu``."""
 
 import ast
 import json
@@ -9,7 +10,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "semantic_depth_tpu_torch"
-_BANNED_ROOTS = {"jax", "jaxlib", "flax", "optax"}
+_BANNED_ROOTS = {"jax", "jaxlib", "flax", "optax", "msgpack", "matplotlib"}
 
 
 def _banned(module: str) -> bool:
@@ -43,9 +44,13 @@ def test_importing_the_port_loads_no_jax_package_module():
         "import json, sys; import semantic_depth_tpu_torch, semantic_depth_tpu_torch.pipeline, "
         "semantic_depth_tpu_torch.ops.neighbors, semantic_depth_tpu_torch.models.from_flax, "
         "semantic_depth_tpu_torch.utils.bench_scenes, semantic_depth_tpu_torch.ops.exact_knn, "
-        "semantic_depth_tpu_torch.io.ply, semantic_depth_tpu_torch.utils.outlier_removal; "
-        "print(json.dumps(sorted(m for m in sys.modules "
-        "if m.split('.')[0] in ('semantic_depth_tpu', 'flax', 'optax'))))"
+        "semantic_depth_tpu_torch.io.ply, semantic_depth_tpu_torch.utils.outlier_removal, "
+        "semantic_depth_tpu_torch.cli, semantic_depth_tpu_torch.cli.common, "
+        "semantic_depth_tpu_torch.cli.semantic_depth, semantic_depth_tpu_torch.cli.sequence, "
+        "semantic_depth_tpu_torch.io.artifacts, semantic_depth_tpu_torch.models.weights, "
+        "semantic_depth_tpu_torch.ops.s2d; "
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('semantic_depth_tpu', 'flax', 'optax', 'msgpack', 'matplotlib'))))"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120, check=True)

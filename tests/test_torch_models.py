@@ -9,8 +9,10 @@ import torch
 from semantic_depth_tpu.models import FCN8s as JaxFCN8s
 from semantic_depth_tpu.models import Monodepth as JaxMonodepth
 from semantic_depth_tpu.models.monodepth import flip_average_postprocess as jax_flip_average
+from semantic_depth_tpu.ops import s2d as jax_s2d
 from semantic_depth_tpu_torch.models import FCN8s, Monodepth, flip_average_postprocess
 from semantic_depth_tpu_torch.models.from_flax import load_flax, state_dict_from_flax
+from semantic_depth_tpu_torch.ops import s2d
 
 from torch_helpers import numpy_params
 
@@ -109,13 +111,89 @@ def test_monodepth_bf16_close_to_jax():
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-3)
 
 
-def test_unported_variants_raise():
-    with pytest.raises(NotImplementedError):
-        FCN8s(input_s2d=True)
-    with pytest.raises(NotImplementedError):
-        Monodepth(encoder="resnet50")
-    with pytest.raises(NotImplementedError):
-        Monodepth(input_s2d=True)
+def test_space_to_depth_matches_jax():
+    x = np.random.default_rng(6).normal(size=(2, 6, 10, 3)).astype(np.float32)
+    want = np.asarray(jax_s2d.space_to_depth(jnp.asarray(x)))
+    got = s2d.space_to_depth(torch.from_numpy(x))
+    assert got.shape == (2, 3, 5, 12)
+    np.testing.assert_array_equal(got.numpy(), want)  # phase-major channels
+    np.testing.assert_array_equal(s2d.depth_to_space(got).numpy(), x)
+    np.testing.assert_array_equal(
+        s2d.depth_to_space(torch.from_numpy(want.copy())).numpy(),
+        np.asarray(jax_s2d.depth_to_space(jnp.asarray(want))))
+    # pixel_unshuffle orders channels channel-major: not this layout
+    assert not torch.equal(torch.nn.functional.pixel_unshuffle(
+        torch.from_numpy(x).permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1), got)
+    with pytest.raises(ValueError, match="H, W % 2"):
+        s2d.space_to_depth(torch.zeros(1, 5, 4, 3))
+    with pytest.raises(ValueError, match="channels % 4"):
+        s2d.depth_to_space(torch.zeros(1, 2, 2, 6))
+
+
+def test_fcn8s_input_s2d_logits_match_jax_fp32():
+    x = _frames(7)
+    jnet = JaxFCN8s(num_classes=3, input_s2d=True, **_FCN_SMALL)
+    params = numpy_params(jnet, x, seed=3)
+    want = np.asarray(jnet.apply(params, jnp.asarray(x)))
+    net = load_flax(FCN8s(num_classes=3, input_s2d=True, **_FCN_SMALL), params).eval()
+    with torch.no_grad():
+        got = net(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (2, 128, 256, 3)
+    assert np.abs(want).max() > 0.3
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("encoder,input_s2d,hw", [
+    ("resnet50", False, (128, 256)),
+    ("vgg", True, (256, 512)),  # the packed vgg trunk halves 7 times: 256 rows at least
+    ("resnet50", True, (128, 256)),
+])
+def test_monodepth_variants_match_jax(encoder, input_s2d, hw):
+    """The disparity pyramid against the JAX default (its s2d rewrite, equal
+    to the plain path up to float32 summation order); ``load_flax`` maps
+    every flax name strictly."""
+    x = _frames(8, h=hw[0], w=hw[1]) / 255.0
+    jnet = JaxMonodepth(encoder=encoder, width_mult=0.0625, input_s2d=input_s2d)
+    params = numpy_params(jnet, x, seed=4)
+    want = [np.asarray(d) for d in jnet.apply(params, jnp.asarray(x))]
+    net = load_flax(Monodepth(encoder, width_mult=0.0625, input_s2d=input_s2d), params).eval()
+    with torch.no_grad():
+        got = [d.numpy() for d in net(torch.from_numpy(x))]
+    n_scales = 5 if input_s2d else 4
+    assert [g.shape for g in got] == [w.shape for w in want] == [
+        (2, hw[0] >> i, hw[1] >> i, 2) for i in range(n_scales)]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
+
+
+def test_monodepth_resnet50_bf16_close_to_jax():
+    x = _frames(9, b=1) / 255.0
+    jnet = JaxMonodepth(encoder="resnet50", width_mult=0.0625, compute_dtype=jnp.bfloat16)
+    params = numpy_params(jnet, x, seed=5)
+    want = np.asarray(jnet.apply(params, jnp.asarray(x), method=jnet.disp_left))
+    net = load_flax(Monodepth("resnet50", compute_dtype=torch.bfloat16, width_mult=0.0625), params)
+    with torch.no_grad():
+        got = net.eval().disp_left(torch.from_numpy(x)).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=5e-3)
+
+
+def test_resnet50_max_pool_pads_with_zeros():
+    """The stem's pool pads with zeros, as the JAX ``_maxpool`` does: on an
+    all-negative map every border window sees a 0."""
+    net = Monodepth("resnet50", width_mult=0.0625)
+    with torch.no_grad():
+        net.enc1.weight.zero_()
+        net.enc1.bias.fill_(-3.0)  # conv1 = elu(-3) everywhere
+        conv1, pool1 = net._encode(torch.zeros((1, 3, 32, 32)))[:2]
+    assert bool((conv1 < -0.9).all())
+    assert bool((pool1[..., 0, :] == 0).all()) and bool((pool1[..., :, 0] == 0).all())
+    assert bool((pool1[..., 1:, 1:] < -0.9).all())
+
+
+def test_unknown_encoder_raises():
+    with pytest.raises(ValueError, match="unknown encoder"):
+        Monodepth(encoder="vgg19")
 
 
 def test_flip_average_postprocess_matches_jax():

@@ -190,3 +190,106 @@ def test_ranked_rows_matches_jax():
     want = np.asarray(jpcl._ranked_rows(jnp.asarray(csum), jnp.asarray(targets)))
     got = tpcl._ranked_rows(torch.from_numpy(csum), torch.from_numpy(targets)).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+# --- the pcl functions the JAX package's tests and tools use ---------------------
+
+
+def test_masked_kth_smallest_matches_jax():
+    """tests/test_pcl.py's case, plus a batch of rows with per-row k and an
+    empty row (nan, as the JAX search ends at the all-ones pattern)."""
+    rng = np.random.default_rng(1)
+    vals = rng.normal(size=500).astype(np.float32)
+    valid = rng.uniform(size=500) < 0.6
+    n = int(valid.sum())
+    for k in (0, 1, n // 2, n - 1, n):
+        want = np.asarray(jpcl.masked_kth_smallest(jnp.asarray(vals), jnp.asarray(valid),
+                                                   jnp.int32(k)))
+        got = tpcl.masked_kth_smallest(torch.from_numpy(vals), torch.from_numpy(valid), k)
+        np.testing.assert_array_equal(got.numpy(), want)
+    rows = np.stack([vals, np.round(vals * 3), -vals])
+    ok = np.stack([valid, valid, np.zeros(500, bool)])
+    ks = np.array([3, 100, 0])
+    got = tpcl.masked_kth_smallest(torch.from_numpy(rows), torch.from_numpy(ok),
+                                   torch.from_numpy(ks)).numpy()
+    for r in range(3):
+        want = np.asarray(jpcl.masked_kth_smallest(jnp.asarray(rows[r]), jnp.asarray(ok[r]),
+                                                   jnp.int32(ks[r])))
+        np.testing.assert_array_equal(got[r], want)
+    assert np.isnan(got[2])
+
+
+def _road_mask(h, w, f, cx, cy, plane, half_width_of):
+    """tests/test_pcl.py's analytic planar road: pixel (row, col) is road iff
+    its ray meets the plane y = a x + c z + d within |x| <= half_width(z)."""
+    a, _, c, d = plane
+    u = np.arange(w, dtype=np.float64)[None, :] - cx
+    v = cy - np.arange(h, dtype=np.float64)[:, None]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        wz = d * f / (v - a * u + c * f)
+        x = u * wz / f
+    ok = np.isfinite(wz) & (wz > 1.0) & (wz < 60.0)
+    return ok & (np.abs(x) <= half_width_of(wz)), wz
+
+
+def test_plane_edge_width_matches_jax():
+    """The flat and the tilted road of tests/test_pcl.py, a halo of false
+    positives with and without the measured-range gate, poisoned rows for the
+    MAD refit, and an empty mask, as one batch against per-frame JAX calls."""
+    h, w, f = 256, 512, 500.0
+    cx, cy = (w - 1) / 2.0, (h - 1) / 2.0
+    flat = (0.0, -1.0, 0.0, -1.5)
+    tilted = (0.02, -1.0, 0.015, -1.4)
+    mask_flat, wz = _road_mask(h, w, f, cx, cy, flat, lambda z: 3.0)
+    mask_tilt, _ = _road_mask(h, w, f, cx, cy, tilted, lambda z: 2.5 + 0.05 * (z - 10.0))
+    halo, _ = _road_mask(h, w, f, cx, cy, flat, lambda z: 3.3)
+    wide, _ = _road_mask(h, w, f, cx, cy, flat, lambda z: 5.0)
+    poisoned = mask_flat.copy()
+    r_lo, r_hi = int(cy + 1.5 * f / 10.5), int(cy + 1.5 * f / 9.5)
+    for r in list(range(r_lo, r_hi + 1))[::4][:2]:
+        poisoned[r] = wide[r]
+    meas = np.where(mask_flat, wz, np.where(halo, wz * 1.10, np.nan)).astype(np.float32)
+    cases = [(mask_flat, flat, None), (mask_tilt, tilted, None), (halo, flat, None),
+             (halo, flat, meas), (poisoned, flat, None), (np.zeros((h, w), bool), flat, None)]
+    masks = torch.from_numpy(np.stack([c[0] for c in cases]))
+    planes = torch.tensor([c[1] for c in cases], dtype=torch.float32)
+    meas_all = torch.from_numpy(np.stack(
+        [c[2] if c[2] is not None else np.full((h, w), np.nan, np.float32) for c in cases]))
+    gated = torch.tensor([c[2] is not None for c in cases])
+    got_open = tpcl.plane_edge_width(masks, planes, cx, cy, f, 10.0)
+    got_gated = tpcl.plane_edge_width(masks, planes, cx, cy, f, 10.0, meas_range=meas_all)
+    for i, (mask, plane, m) in enumerate(cases):
+        want = jpcl.plane_edge_width(jnp.asarray(mask), jnp.asarray(plane, jnp.float32),
+                                     cx, cy, f, 10.0,
+                                     meas_range=None if m is None else jnp.asarray(m))
+        got = got_gated if gated[i] else got_open
+        assert bool(got[2][i]) == bool(want[2]), i
+        for g, wnt in zip((got[0][i], got[1][i], got[3][i]), (want[0], want[1], want[3])):
+            np.testing.assert_allclose(g.numpy(), np.asarray(wnt), rtol=1e-5, atol=1e-5,
+                                       err_msg=str(i))
+    assert abs(float(got_gated[3][3]) - 6.0) < 0.01 and float(got_open[3][2]) > 6.4
+
+
+@pytest.mark.parametrize("capacity", [4096, 1024, 256])
+def test_select_slab_priority_compact_and_stride_match_jax(capacity):
+    """Fits, out-of-slab overflow, and the slab alone overflowing; two frames
+    in one call, each equal to its JAX call (tests/test_pcl.py's composition)."""
+    frames = [_cloud(11, n=8192), _cloud(12, n=8192, valid_frac=0.2)]
+    lo, hi = -12.0, -8.0
+    batch = tpcl.MaskedCloud(*(torch.from_numpy(np.stack([f[i] for f in frames]))
+                               for i in range(3)))
+    sel, stride = tpcl.select_slab_priority(batch, capacity, 2, lo, hi)
+    packed = tpcl.compact(sel, capacity)
+    resid = tpcl.compact_stride(sel, capacity)
+    assert packed.xyz.shape == (2, capacity, 3)
+    for i, (xyz, rgb, valid) in enumerate(frames):
+        jc, _ = _both(xyz, rgb, valid)
+        jsel, jstride = jpcl.select_slab_priority(jc, capacity, 2, lo, hi)
+        np.testing.assert_array_equal(sel.valid[i].numpy(), np.asarray(jsel.valid))
+        assert int(stride[i]) == int(jstride)
+        assert int(resid[i]) == int(jpcl.compact_stride(jsel, capacity))
+        jp = jpcl.compact(jsel, capacity)
+        v = np.asarray(jp.valid)
+        np.testing.assert_array_equal(packed.valid[i].numpy(), v)
+        np.testing.assert_array_equal(packed.xyz[i].numpy()[v], np.asarray(jp.xyz)[v])
+        np.testing.assert_array_equal(packed.rgb[i].numpy()[v], np.asarray(jp.rgb)[v])

@@ -1,10 +1,15 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's frame program on one GPU.
 
-    python3 tools/profile_torch_port.py [--iters 10] [--stat_mode grid|exact] [--json out.json]
+    python3 tools/profile_torch_port.py [--iters 10] [--stat_mode grid|exact]
+        [--encoder vgg|resnet50] [--native] [--json out.json]
 
-Full width: FCN-8s/VGG16 + monodepth-vgg with seeded random weights, 8
-rendered 1024x2048 uint8 frames, 256x512 networks, float32 and bfloat16.
+Full width: FCN-8s/VGG16 + monodepth (``--encoder``) with seeded random
+weights (``cli.common.build_pipeline``), 8 rendered 1024x2048 uint8 frames,
+256x512 networks, float32 and bfloat16. ``--native`` runs the native
+full-resolution networks instead (``build_pipeline(native_s2d=True)``:
+1024x2048 networks, no flip-average pass) on 4 frames, with 4 analytic
+scenes at 1024x2048.
 For each compute dtype it reports
 
 * host wall ms of one ``process_batch`` (median, ``synchronize`` after);
@@ -99,20 +104,17 @@ def _profile(torch, fn):
     )
 
 
-def run_dtype(torch, dtype_name, frames, scenes, iters, stat_mode):
+def run_dtype(torch, dtype_name, frames, scenes, iters, stat_mode, encoder, native):
     from semantic_depth_tpu_torch import config, pipeline
-    from semantic_depth_tpu_torch.models import FCN8s, Monodepth
+    from semantic_depth_tpu_torch.cli.common import apply_encoder_override, build_pipeline
 
-    dtype = torch.bfloat16 if dtype_name == "bfloat16" else torch.float32
-    cfg = config.munich_pipeline_config(compute_dtype=dtype_name)
+    hw = (frames.shape[1], frames.shape[2]) if native else (256, 512)
+    cfg = config.munich_pipeline_config(compute_dtype=dtype_name, input_height=hw[0],
+                                        input_width=hw[1])
     cfg = dataclasses.replace(cfg, road=dataclasses.replace(cfg.road, stat_mode=stat_mode))
-    torch.manual_seed(0)
-    with torch.device("cuda"):
-        fcn = FCN8s(num_classes=cfg.segmenter.num_classes, compute_dtype=dtype)
-        torch.manual_seed(1)
-        mono = Monodepth(encoder=cfg.monodepth.encoder, compute_dtype=dtype)
-    pipe = pipeline.SemanticDepthPipeline(cfg, fcn, mono)
-    cam, s_w = pipeline._scaled_camera(cfg, cfg.camera.focal)
+    pipe = build_pipeline(apply_encoder_override(cfg, encoder), "random", "random",
+                          native_s2d=native)
+    cam, s_w = pipeline._scaled_camera(pipe.config, cfg.camera.focal)
     mult = 2048.0 * s_w
     with torch.inference_mode():
         small, road, fence = pipe._batch_segment(frames)
@@ -138,7 +140,7 @@ def run_dtype(torch, dtype_name, frames, scenes, iters, stat_mode):
             profile_analytic_geometry=_profile(
                 torch, lambda: pipe._batch_geometry(*scenes, cam)),
         )
-    del pipe, fcn, mono
+    del pipe
     torch.cuda.empty_cache()
     return out
 
@@ -148,6 +150,10 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--stat_mode", choices=("grid", "exact"), default="grid",
                     help="the road chain's statistical filter (road.stat_mode)")
+    ap.add_argument("--encoder", choices=("vgg", "resnet50"), default="vgg",
+                    help="the monodepth encoder")
+    ap.add_argument("--native", action="store_true",
+                    help="the native full-resolution networks on 4 frames of 1024x2048")
     ap.add_argument("--json", help="write the full result to this file")
     args = ap.parse_args()
     import torch
@@ -162,17 +168,21 @@ def main() -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    frames = torch.from_numpy(scene_pool(8, 1024, 2048, seed=3)[0]).cuda()
-    imgs, labels, disp_norm = scene_pool(8, 256, 512, seed=0)[:3]
+    batch, (h, w) = (4, (1024, 2048)) if args.native else (8, (256, 512))
+    frames = torch.from_numpy(scene_pool(batch, 1024, 2048, seed=3)[0]).cuda()
+    imgs, labels, disp_norm = scene_pool(batch, h, w, seed=0)[:3]
     scenes = tuple(torch.from_numpy(a).cuda() for a in (
-        imgs.astype(np.float32), labels == 7, labels == 13, disp_norm * np.float32(2048.0)))
-    result = dict(card=card, batch=8, frames="1024x2048 uint8", network_input="256x512",
-                  stat_mode=args.stat_mode)
+        imgs.astype(np.float32), labels == 7, labels == 13,
+        disp_norm * np.float32(2048.0 * w / 512)))
+    result = dict(card=card, batch=batch, frames="1024x2048 uint8", network_input=f"{h}x{w}",
+                  stat_mode=args.stat_mode, encoder=args.encoder, native=args.native)
     for dtype_name in ("float32", "bfloat16"):
-        r = run_dtype(torch, dtype_name, frames, scenes, args.iters, args.stat_mode)
+        r = run_dtype(torch, dtype_name, frames, scenes, args.iters, args.stat_mode,
+                      args.encoder, args.native)
         result[dtype_name] = r
-        print(f"[{dtype_name}, stat_mode {args.stat_mode}] process_batch wall {r['wall_ms_process_batch']:.2f} ms "
-              f"(median of {args.iters})", flush=True)
+        print(f"[{dtype_name}, stat_mode {args.stat_mode}, {args.encoder}"
+              f"{', native' if args.native else ''}] process_batch wall "
+              f"{r['wall_ms_process_batch']:.2f} ms (median of {args.iters})", flush=True)
         for stage, ms in r["stage_device_ms"].items():
             print(f"    stage {stage:30s} {ms:9.3f} ms", flush=True)
         for key in ("profile_batch", "profile_analytic_geometry"):
