@@ -54,7 +54,21 @@ either is missing or any check fails. Phases:
    ``--profile_stages`` (9 rows of stage times), and the sequence CLI over 8
    scene PNGs with ``--batch 4``, then ``--native_s2d`` at 1024x2048 with
    random weights (one overlay PNG and one ``_rw.ply`` a frame); process
-   seconds and seconds per frame.
+   seconds and seconds per frame;
+9. the trainers at full width, 256x512, float32, in a temporary directory:
+   FCN-8s/VGG16 (fc 4096) one ``train_batch`` on the card against the CPU
+   from the same seeded parameters at keep 1.0 (loss, confusion matrix,
+   gradients, post-step parameters), 20 steps at the reference
+   hyperparameters on a ``make_mockup`` tree with a falling loss, 10 timed
+   steps at batch 8; monodepth-vgg the same card-against-CPU step and 20
+   steps at batch 8 on seeded stereo pairs (a smoothed base and its 4-px
+   shift); no port kernel launches in either; both training CLIs as
+   subprocesses (``cli.fcn`` train with ``--inference_flag`` then test on
+   the ``fcn8s.msgpack`` it wrote, ``cli.monodepth_train``); the trained
+   weights through ``build_pipeline`` and one ``process_batch`` of 8 frames
+   (finite outputs, the grid mode's launches), and the reloaded networks'
+   forward bit-equal to the trainers'. Step ms, images or pairs per second,
+   peak device memory and the CLIs' seconds.
 
 The second-to-last lines are the card's name and power limit and one JSON
 object with the kernels' numbers; the last line is
@@ -980,11 +994,15 @@ def phase_native_end_to_end(dev, counters, frames, n_timed=7):
     return dict(batch_s_median=med, frames_per_s=4.0 / med, batch_s_all=times, launches=counts)
 
 
-def _run_cli(name, args, repo):
-    """One CLI as a subprocess on the card; its failure fails the run."""
+def _run_cli(name, args, repo, cwd=None):
+    """One CLI as a subprocess on the card, run in ``cwd`` (the repo by
+    default); its failure fails the run."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (repo, env.get("PYTHONPATH")) if p)
     t0 = time.time()
-    proc = subprocess.run([sys.executable, "-m", *args], cwd=repo, stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True, timeout=600)
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=cwd or repo, env=env,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                          timeout=600)
     secs = time.time() - t0
     log(f"  {name}: {secs:.2f} s as a process\n    "
         + "\n    ".join(proc.stdout.strip().splitlines()[-3:]))
@@ -1079,6 +1097,221 @@ def phase_clis(dev, frames):
     return res
 
 
+def _card_against_cpu(name, make_trainer, model, batch, lr):
+    """One train step from the same parameters on the card and on the CPU:
+    the losses within rel 1e-4, the gradients within 1e-3 of their norm
+    (all parameters together) and 1e-2 of it in each parameter, the
+    post-step parameters within 1% of lr where |g| > 1e-4 of the model's
+    largest (``probes.train_step_agreement``)."""
+    import copy
+
+    from semantic_depth_tpu_torch.utils.probes import train_step_agreement
+
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    card = make_trainer(copy.deepcopy(model), "cuda")
+    t0 = time.perf_counter()
+    got = card.train_batch(*batch)
+    card_s = time.perf_counter() - t0
+    cpu = make_trainer(model, "cpu")
+    t0 = time.perf_counter()
+    want = cpu.train_batch(*batch)
+    cpu_s = time.perf_counter() - t0
+    rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in want if k not in ("cm", "iou")}
+    check(all(v <= 1e-4 for v in rel.values()),
+          f"{name}: card step losses within rel 1e-4 of the CPU's ({rel})")
+    agree = train_step_agreement(cpu, card, before, lr)
+    check(agree["grad_rel"] < 1e-3 and agree["grad_rel_param"] < 1e-2
+          and agree["step_err_lr"] < 1e-2 and agree["moved"] > 0.99,
+          f"{name}: card gradients and post-step parameters agree with the CPU's ({agree})")
+    out = dict(loss_card=got["loss"], loss_cpu=want["loss"], rel_err=rel,
+               first_step_card_s=card_s, step_cpu_s=cpu_s, **agree)
+    if "cm" in want:
+        off = float(np.abs(got["cm"] - want["cm"]).sum() / 2 / want["cm"].sum())
+        check(off <= 1e-3, f"{name}: confusion matrices differ on {off:.2e} of the pixels "
+              "(at most 1e-3)")
+        out["cm_pixels_off"] = off
+    del card, cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def _timed_steps(trainer, batches, n):
+    """Wall seconds of each of ``n`` steps (a step ends in a host read of its
+    loss), the losses, and the peak device memory over them."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        losses.append(trainer.train_batch(*batch)["loss"])
+        times.append(time.perf_counter() - t0)
+        if len(times) == n:
+            break
+    return times, losses, torch.cuda.max_memory_allocated()
+
+
+def _falls(name, losses):
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    check(np.isfinite(losses).all() and last < first,
+          f"{name}: mean loss of the last 3 steps {last:.5f} below the first 3's {first:.5f}")
+
+
+def phase_trainers(dev, counters, frames):
+    """Both trainers at full width, their CLIs, and their weights served."""
+    import cv2
+
+    from semantic_depth_tpu_torch.cli.common import build_pipeline
+    from semantic_depth_tpu_torch.config import TrainConfig, munich_pipeline_config
+    from semantic_depth_tpu_torch.models import FCN8s, Monodepth
+    from semantic_depth_tpu_torch.train.data import SegmentationDataset
+    from semantic_depth_tpu_torch.train.monodepth_trainer import (
+        MonodepthTrainConfig, MonodepthTrainer)
+    from semantic_depth_tpu_torch.train.trainer import FCNTrainer
+    from semantic_depth_tpu_torch.utils.make_mockup import make_mockup
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    res = dict(fcn={}, monodepth={})
+    with tempfile.TemporaryDirectory() as tmp:
+        make_mockup(os.path.join(tmp, "data"), counts=(8, 2, 2), hw=(256, 512), seed=0)
+        ds = SegmentationDataset(os.path.join(tmp, "data"), "roborace_mockup", seed=0)
+        reset_counts(counters)
+
+        log("[phase 9] FCN-8s/VGG16 full width (fc 4096), 256x512, float32")
+        cfg = TrainConfig()  # the reference's: lr 1e-5, batch 1, keep 0.5
+        model = FCN8s(dropout_keep_prob=1.0, generator=torch.Generator().manual_seed(0))
+        n_params = sum(p.numel() for p in model.parameters())
+        check(n_params > 134e6, f"FCN-8s at full width: {n_params} parameters")
+        test_batch = next(iter(ds.batches(1, mode="test", prefetch=0)))  # draws nothing
+        res["fcn"]["card_vs_cpu"] = _card_against_cpu(
+            "FCN-8s", lambda m, d: FCNTrainer(cfg, model=m, device=d), model, test_batch,
+            cfg.learning_rate)
+        del model
+        fcn = FCNTrainer(cfg, seed=0, device=dev)
+
+        def epochs(batch_size):
+            while True:
+                yield from ds.batches(batch_size, mode="train")
+
+        times, losses, _ = _timed_steps(fcn, epochs(1), 20)
+        _falls("FCN-8s, 20 steps at batch 1", losses)
+        batch8 = next(iter(ds.batches(8, mode="train", prefetch=0)))
+        fcn.train_batch(*batch8)  # cuDNN picks its algorithms for batch 8
+        times8, losses8, peak = _timed_steps(fcn, iter(lambda: batch8, None), 10)
+        med = statistics.median(times8)
+        res["fcn"].update(params=n_params, losses_batch1=losses, step_s_batch1=times,
+                          step_ms_batch1_median=statistics.median(times[1:]) * 1e3,
+                          step_ms_batch8_median=med * 1e3, images_per_s_batch8=8 / med,
+                          step_s_batch8=times8, losses_batch8=losses8,
+                          peak_mem_gib_batch8=peak / 2**30)
+        log(f"  FCN-8s: batch 1 {res['fcn']['step_ms_batch1_median']:.2f} ms a step; "
+            f"batch 8 {med * 1e3:.2f} ms a step, {8 / med:.2f} images/s, peak "
+            f"{peak / 2**30:.2f} GiB")
+        fcn_path = fcn.save_msgpack(os.path.join(tmp, "fcn8s.msgpack"))
+
+        log("[phase 9] monodepth-vgg full width, 256x512, batch 8, float32")
+        rng = np.random.default_rng(0)
+        base = rng.uniform(0, 1, (8, 256, 512, 3)).astype(np.float32)
+        for _ in range(2):  # smoothed, so the photometric loss has gradients toward alignment
+            base[:, :, 1:-1] = (base[:, :, :-2] + base[:, :, 1:-1] + base[:, :, 2:]) / 3
+            base[:, 1:-1] = (base[:, :-2] + base[:, 1:-1] + base[:, 2:]) / 3
+        pair = (base, np.roll(base, -4, axis=2))
+        mcfg = MonodepthTrainConfig()
+        res["monodepth"]["card_vs_cpu"] = _card_against_cpu(
+            "monodepth", lambda m, d: MonodepthTrainer(mcfg, model=m, device=d),
+            Monodepth(generator=torch.Generator().manual_seed(1)), pair, mcfg.learning_rate)
+        mono = MonodepthTrainer(mcfg, seed=1, device=dev)
+        mono.train_batch(*pair)  # cuDNN picks its algorithms
+        times, losses, peak = _timed_steps(mono, iter(lambda: pair, None), 20)
+        _falls("monodepth, 20 steps at batch 8", losses)
+        med = statistics.median(times)
+        res["monodepth"].update(losses=losses, step_s=times, step_ms_median=med * 1e3,
+                                pairs_per_s=8 / med, peak_mem_gib=peak / 2**30)
+        log(f"  monodepth: {med * 1e3:.2f} ms a step of 8 pairs, {8 / med:.2f} pairs/s, peak "
+            f"{peak / 2**30:.2f} GiB")
+        mono_path = mono.save_msgpack(os.path.join(tmp, "monodepth.msgpack"))
+        res["launches"] = read_counts(counters)
+        check(not any(res["launches"].values()),
+              f"the trainers launch no port kernel ({res['launches']})")
+
+        log("[phase 9] the training CLIs as subprocesses")
+        fcn_cli = "semantic_depth_tpu_torch.cli.fcn"
+        args = ["--dataset", "roborace_mockup", "--data_dir", os.path.join(tmp, "data"),
+                "--model_dir", os.path.join(tmp, "models"), "--logging_dir",
+                os.path.join(tmp, "log"), "--runs_dir", os.path.join(tmp, "runs")]
+        name = "1-Epochs-roborace_mockup"
+        secs, text = _run_cli("fcn --mode train --epochs 1 --inference_flag",
+                              [fcn_cli, "--mode", "train", "--epochs", "1", "--inference_flag",
+                               *args], repo, cwd=tmp)
+        iou_train = float(text.split("TEST: mean iou of test set:")[1].split()[0])
+        (run_dir,) = os.listdir(os.path.join(tmp, "runs", name))
+        pngs = sorted(os.listdir(os.path.join(tmp, "runs", name, run_dir)))
+        check(len(pngs) == 2 and os.path.isfile(os.path.join(tmp, "times.txt"))
+              and os.listdir(os.path.join(tmp, "log", name, "iou"))
+              and os.path.isfile(os.path.join(tmp, "models", name, "fcn8s.msgpack")),
+              f"fcn train: overlays {pngs}, times.txt, the IoU log and fcn8s.msgpack written")
+        test_secs, text = _run_cli("fcn --mode test", [fcn_cli, "--mode", "test", "--model",
+                                                       name, *args], repo, cwd=tmp)
+        iou_test = float(text.split("TEST: mean iou of test set:")[1].split()[0])
+        check(abs(iou_test - iou_train) <= 1e-3,
+              f"fcn test on the written fcn8s.msgpack: IoU {iou_test} (the train run's "
+              f"inference: {iou_train})")
+        for i in range(8):
+            for side, img in zip(("left", "right"), pair):
+                os.makedirs(os.path.join(tmp, "stereo", side), exist_ok=True)
+                cv2.imwrite(os.path.join(tmp, "stereo", side, f"{i}.png"),
+                            np.round(img[i, :, :, ::-1] * 255).astype(np.uint8))
+        mono_secs, _ = _run_cli(
+            "monodepth_train --epochs 1 --batch_size 8",
+            ["semantic_depth_tpu_torch.cli.monodepth_train", "--data_dir",
+             os.path.join(tmp, "stereo"), "--epochs", "1", "--batch_size", "8", "--model_dir",
+             os.path.join(tmp, "mono")], repo, cwd=tmp)
+        check(os.path.isfile(os.path.join(tmp, "mono", "monodepth.msgpack")),
+              "monodepth_train wrote monodepth.msgpack")
+        res["clis"] = dict(fcn_train_s=secs, fcn_test_s=test_secs, fcn_iou_train=iou_train,
+                           fcn_iou_test=iou_test, monodepth_train_s=mono_secs)
+
+        log("[phase 9] the trained weights served by build_pipeline")
+        pipe = build_pipeline(munich_pipeline_config(), fcn_path, mono_path, device=dev)
+        reset_counts(counters)
+        with torch.inference_mode():
+            out = pipe.process_batch(frames)
+        torch.cuda.synchronize()
+        counts = read_counts(counters)
+        check(counts == GRID_LAUNCHES, f"trained weights: launches per batch {counts}")
+        fields = ("disparity", "overlay_small", "frame_small", "colors")
+        check(all(bool(torch.isfinite(getattr(out, f)).all()) for f in fields)
+              and bool(torch.isfinite(out.road_cloud.xyz[out.road_cloud.valid]).all())
+              and bool(torch.isfinite(out.dist_rw[out.rw_found]).all()),
+              f"trained weights: {', '.join(fields)}, the valid road cloud and each found "
+              f"dist_rw finite ({int(out.rw_found.sum())} of 8 found)")
+        small = torch.from_numpy(batch8[0]).to(dev)
+        left = torch.from_numpy(pair[0]).to(dev)
+        pairs = ((pipe.fcn, fcn.model), (pipe.mono, mono.model))
+        same_params = all(torch.equal(a.state_dict()[k], v) for a, b in pairs
+                          for k, v in b.state_dict().items())
+
+        def max_diff(a, b):
+            outs = [(a(small), b(small))] if a is pipe.fcn else zip(a(left), b(left))
+            return max(float((x - y).abs().max()) for x, y in outs)
+
+        with torch.no_grad():
+            again = max_diff(fcn.model, fcn.model)  # cuDNN's default choice of algorithms
+            # cuDNN's default algorithms need not give the same bits twice;
+            # deterministic ones do, so the comparison runs with them
+            with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                            allow_tf32=False):
+                diffs = [max_diff(a, b) for a, b in pairs]
+        check(same_params and diffs == [0.0, 0.0],
+              f"the reloaded networks' parameters and forward (deterministic cuDNN) equal the "
+              f"trainers' bit for bit (max abs diff FCN-8s {diffs[0]}, monodepth {diffs[1]}; "
+              f"FCN-8s against itself with the default algorithms: {again})")
+        res["serve"] = dict(launches=counts, rw_found=int(out.rw_found.sum()),
+                            dist_rw=out.dist_rw.tolist(), fcn_self_diff_default_cudnn=again)
+        del pipe, fcn, mono, out
+        torch.cuda.empty_cache()
+    return res
+
+
 def codec_info():
     """Which image codecs import on this host (information, not a check)."""
     code = ("import importlib\n"
@@ -1144,6 +1377,7 @@ def main() -> int:
     check(e2e["resnet50_float32"]["launches"] == e2e["float32"]["launches"],
           "resnet50 launches per batch equal the vgg path's")
     entry["clis"] = phase_clis(dev, frames)
+    trainers = phase_trainers(dev, counters, frames)
 
     for name, row in rows.items():
         row["launches"] = e2e["bfloat16_exact" if name == "exact_knn" else "float32"][
@@ -1152,7 +1386,7 @@ def main() -> int:
             row["native"] = dict(native_rows[name],
                                  launches=native["end_to_end"]["launches"][name])
     summary = dict(card=smi, build_s=build_s, geometry=geom, end_to_end=e2e, native=native,
-                   entry_points=entry, kernels=list(rows.values()),
+                   entry_points=entry, trainers=trainers, kernels=list(rows.values()),
                    wall_s=time.time() - t_start)
     log("summary: " + json.dumps(summary))
     log(f"[done] wall {time.time() - t_start:.1f} s")

@@ -280,17 +280,23 @@ def _load_msgpack(module: torch.nn.Module, path: str) -> torch.nn.Module:
     return load_flax(module, weights_lib.load_params(path))
 
 
+def fcn_weights_file(path: str) -> str:
+    """The FCN-8s weight file of a path: a .msgpack file, or fcn8s.msgpack in
+    a directory."""
+    if os.path.isfile(path) and path.endswith(".msgpack"):
+        return path
+    native = os.path.join(path, "fcn8s.msgpack")
+    if os.path.isfile(native):
+        return native
+    raise FileNotFoundError(f"no FCN weights at {path} (no fcn8s.msgpack there). {_CONVERT_HINT}")
+
+
 def load_fcn_params(model: FCN8s, path: str) -> FCN8s:
     """Load FCN-8s weights into ``model`` from a .msgpack file or a directory
     holding fcn8s.msgpack. ``path == 'random'`` keeps the seeded init."""
     if path == "random":
         return model
-    if os.path.isfile(path) and path.endswith(".msgpack"):
-        return _load_msgpack(model, path)
-    native = os.path.join(path, "fcn8s.msgpack")
-    if os.path.isfile(native):
-        return _load_msgpack(model, native)
-    raise FileNotFoundError(f"no FCN weights at {path} (no fcn8s.msgpack there). {_CONVERT_HINT}")
+    return _load_msgpack(model, fcn_weights_file(path))
 
 
 def load_mono_params(model: Monodepth, path: str) -> Monodepth:
@@ -313,8 +319,7 @@ def load_mono_params(model: Monodepth, path: str) -> Monodepth:
 
 def require_dense_outputs(out, flag_context: str):
     """Fail with an actionable message when outputs carry only the scalars
-    (the frozen, scalars-only serving of ROADMAP A6) on a path that writes
-    dense artifacts."""
+    (frozen, scalars-only serving) on a path that writes dense artifacts."""
     if not hasattr(out, "overlay_small"):
         raise SystemExit(f"{flag_context} needs dense outputs; these carry only the distances")
     return out
@@ -340,9 +345,9 @@ def reject_queued_flags(args) -> None:
     """``--use_frozen PATH`` and ``--mesh`` select serving paths this port
     does not have yet; a bare ``--use_frozen`` stays the reference's no-op."""
     if args.use_frozen:
-        raise SystemExit("--use_frozen PATH (frozen serving) is not ported yet: ROADMAP A6")
+        raise SystemExit("--use_frozen PATH: frozen serving is not ported yet")
     if args.mesh:
-        raise SystemExit("--mesh (multi-device serving) is not ported yet: ROADMAP A9")
+        raise SystemExit("--mesh: multi-device serving is not ported yet")
 
 
 def build_pipeline(

@@ -63,7 +63,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--is_city", action="store_true")
     p.add_argument("--results_dir", default="results")
     p.add_argument("--use_frozen", nargs="?", const=None, default=None, metavar="PATH",
-                   help="frozen serving is not ported yet (ROADMAP A6); the bare flag "
+                   help="frozen serving is not ported yet; the bare flag "
                         "is the reference's no-op")
     p.add_argument("--use_xla", action="store_true", help="(compat no-op)")
     p.add_argument("--CUDA_DEVICE_NUMBER", default="0", help="the CUDA card to run on")
@@ -77,7 +77,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="use the input_s2d native full-resolution variants "
                         "(space-to-depth packed trunks; needs a matching weight set)")
     p.add_argument("--mesh", choices=("sp",), default=None,
-                   help="multi-device serving is not ported yet (ROADMAP A9)")
+                   help="multi-device serving is not ported yet")
     return p
 
 

@@ -15,39 +15,49 @@ needs no flip (``from_flax`` only permutes its axes).
 space-to-depth packed (12 channels into ``conv1_1``), the trunk runs on the
 half-resolution grid, and ``upscore8`` emits the four pixel phases as
 channel groups that ``depth_to_space`` puts back at the input resolution.
+
+Init is flax's (``models/init.py``): encoder kernels ``lecun_normal``,
+decoder kernels ``truncated_normal(0.01)``, biases zero.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.s2d import depth_to_space, space_to_depth
+from .init import lecun_normal_, truncated_normal_
 
 # VGG16 conv stacks: (num convs, channels) per block; pools between blocks.
 _VGG_BLOCKS: Sequence[tuple] = ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512))
+DECODER_LAYERS = ("score_fc7", "score_pool4", "score_pool3", "upscore2", "upscore4", "upscore8")
 
 
 class FCN8s(nn.Module):
     """FCN-8s with VGG16 encoder. Parameters and compute share
-    ``compute_dtype``; logits come back float32. Dropout is off at inference
-    and this port holds no training path, so it has no dropout layer."""
+    ``compute_dtype``; logits come back float32. ``dropout_keep_prob`` is the
+    probability of keeping a unit after the fc6 and fc7 ReLUs when
+    ``forward`` runs with ``train=True`` (the reference feeds 0.5 in
+    training). ``generator`` seeds the init."""
 
     def __init__(
         self,
         num_classes: int = 3,
         compute_dtype: torch.dtype = torch.float32,
+        dropout_keep_prob: float = 0.5,
         width_mult: float = 1.0,
         fc_channels: int = 4096,
         input_s2d: bool = False,
+        generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.input_s2d = input_s2d
         self.compute_dtype = compute_dtype
         self.num_classes = num_classes
+        self.dropout_keep_prob = dropout_keep_prob
         self.convs = []
         in_ch = 12 if input_s2d else 3
         for bi, (n_convs, ch) in enumerate(_VGG_BLOCKS, start=1):
@@ -71,9 +81,27 @@ class FCN8s(nn.Module):
         self.upscore4 = nn.ConvTranspose2d(nc, nc, 4, stride=2, padding=1)
         self.upscore8 = nn.ConvTranspose2d(nc, 4 * nc if input_s2d else nc, 16, stride=8,
                                            padding=4)
+        for name, layer in self.named_children():
+            if name in DECODER_LAYERS:
+                truncated_normal_(layer, 0.01, generator)  # fcn.py:161
+            else:
+                lecun_normal_(layer, generator)
         self.to(compute_dtype)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def _dropout(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """flax's inverted dropout at rate 1 - keep: each unit kept with
+        probability keep and scaled by 1 / keep, the mask drawn from
+        ``generator``. A keep of 1 returns the input unchanged, as flax does
+        at rate 0. The masks cannot equal flax's, whose stream is JAX's."""
+        keep = self.dropout_keep_prob
+        if keep == 1.0:
+            return x
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        # a true division (a host scalar would be a multiply by 1 / keep on the card)
+        return torch.where(mask, x / x.new_tensor(keep), 0.0)
+
+    def forward(self, images: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = images.to(self.compute_dtype)
         if self.input_s2d:
             x = space_to_depth(x)  # (B, H/2, W/2, 12)
@@ -88,10 +116,23 @@ class FCN8s(nn.Module):
             elif bi == 4:
                 skips["pool4"] = x  # H/16
         x = F.relu(self.fc6(x))
+        if train:
+            x = self._dropout(x, generator)
         x = F.relu(self.fc7(x))  # H/32
+        if train:
+            x = self._dropout(x, generator)
         fuse4 = self.upscore2(self.score_fc7(x)) + self.score_pool4(skips["pool4"])
         fuse3 = self.upscore4(fuse4) + self.score_pool3(skips["pool3"])
         up8 = self.upscore8(fuse3).permute(0, 2, 3, 1)
         if self.input_s2d:
             up8 = depth_to_space(up8)
         return up8.float()
+
+
+def decoder_l2_loss(module: FCN8s, scale: float = 1e-3) -> torch.Tensor:
+    """The reference's l2_regularizer on every decoder kernel (fcn.py:169-213):
+    ``0.5 * scale * sum(w^2)``, which no layout permutation changes."""
+    total = 0.0
+    for name in DECODER_LAYERS:
+        total = total + torch.sum(torch.square(getattr(module, name).weight.float()))
+    return 0.5 * scale * total

@@ -19,20 +19,22 @@ extra level-0 decoder step (``upconv0`` / ``iconv0`` / ``disp0``) restores
 the original resolution, so the pyramid has five scales.
 
 Layer names equal the flax parameter names, so ``from_flax.load_flax`` maps
-every variant strictly. The JAX package's ``s2d_opt`` rewrite is a TPU
+every variant strictly. Init is flax's: ``lecun_normal`` kernels and zero
+biases in every conv (``models/init.py``). The JAX package's ``s2d_opt`` rewrite is a TPU
 lane-filling rearrangement pinned equal to this plain path, so it has no
 counterpart here.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.s2d import space_to_depth
+from .init import lecun_normal_
 
 _VGG_ENC = ((32, 7), (64, 5), (128, 3), (256, 3), (512, 3), (512, 3), (512, 3))
 _VGG_DEC = (512, 512, 256, 128, 64, 32, 16)  # upconv7 .. upconv1
@@ -48,7 +50,8 @@ def _upsample_nn(x: torch.Tensor) -> torch.Tensor:
 class Monodepth(nn.Module):
     """``forward(images (B, H, W, 3) in [0, 1])`` returns the disparity
     pyramid finest first, each (B, H/2^i, W/2^i, 2) float32 (left, right).
-    ``disp_left`` returns the consumed surface: (B, H, W)."""
+    ``disp_left`` returns the consumed surface: (B, H, W). ``generator``
+    seeds the init."""
 
     def __init__(
         self,
@@ -56,6 +59,7 @@ class Monodepth(nn.Module):
         compute_dtype: torch.dtype = torch.float32,
         width_mult: float = 1.0,
         input_s2d: bool = False,
+        generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         if encoder not in ("vgg", "resnet50"):
@@ -110,6 +114,8 @@ class Monodepth(nn.Module):
             self._conv("upconv0", in_ch, c, 3)
             self._conv("iconv0", c + 2, c, 3)
             self._conv("disp0", c, 2, 3)
+        for layer in self.children():
+            lecun_normal_(layer, generator)
         self.to(compute_dtype)
 
     def _conv(self, name: str, cin: int, cout: int, k: int, stride: int = 1) -> None:

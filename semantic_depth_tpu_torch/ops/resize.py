@@ -8,6 +8,8 @@ mapping, replicated border) and the device evaluates
     out[b, i, j, c] = sum_{k, l} W_rows[i, k] * img[b, k, l, c] * W_cols[j, l]
 
 as two float32 ``torch.matmul`` calls (full float32: ``runtime.set_full_fp32``).
+``resize_np`` and ``resize_clip_u8_np`` are the host numpy twins that the
+training data loaders use.
 """
 
 from __future__ import annotations
@@ -88,3 +90,30 @@ def resize_clip_u8(img: torch.Tensor, out_hw, method: str = "cubic") -> torch.Te
     matching what cv2.resize does to uint8 frames. ``torch.round`` rounds
     half to even, like ``jnp.round``."""
     return torch.clamp(torch.round(resize(img, out_hw, method)), 0.0, 255.0)
+
+
+def resize_np(img: np.ndarray, out_hw, method: str = "cubic") -> np.ndarray:
+    """Host numpy twin of ``resize`` for one (H, W[, C]) image: the same
+    interpolation matrices applied with float32 tensordots, as the JAX
+    package's ``resize_np`` does, so the data loaders' batches are the same
+    bits in both packages."""
+    out_h, out_w = int(out_hw[0]), int(out_hw[1])
+    squeeze = img.ndim == 2
+    x = img.astype(np.float32)
+    if squeeze:
+        x = x[:, :, None]
+    src_h, src_w, _ = x.shape
+    if (out_h, out_w) == (src_h, src_w):
+        out = x
+    else:
+        wr = _interp_matrix(src_h, out_h, method)
+        wc = _interp_matrix(src_w, out_w, method)
+        out = np.tensordot(wr, x, axes=([1], [0]))  # (out_h, src_w, C)
+        out = np.tensordot(out, wc, axes=([1], [1]))  # (out_h, C, out_w)
+        out = np.moveaxis(out, 2, 1)
+    return out[:, :, 0] if squeeze else out
+
+
+def resize_clip_u8_np(img: np.ndarray, out_hw, method: str = "cubic") -> np.ndarray:
+    """Host twin of ``resize_clip_u8`` (float32 values on the uint8 grid)."""
+    return np.clip(np.round(resize_np(img, out_hw, method)), 0.0, 255.0)

@@ -10,7 +10,9 @@ card tests:
 * ``sync_debug``: the geometry tail's MAD and radius filters under
   ``torch.cuda.set_sync_debug_mode``, so that a synchronising CUDA call in
   them (a host-to-device copy of a threshold or a radius) raises or is
-  collected.
+  collected;
+* ``train_step_agreement``: how one trainer step on the card agrees with
+  the same step on the CPU.
 """
 
 from __future__ import annotations
@@ -154,3 +156,41 @@ def sync_debug(mode="error"):
 
     with _wrapped(SYNC_FREE_FILTERS, wrap):
         yield found
+
+
+def train_step_agreement(ref, other, before, lr):
+    """Compare one step of two trainers (``ref`` on the CPU, ``other`` on the
+    card, say) taken from the same parameters ``before`` ({name: CPU
+    tensor}). Returns ``grad_rel``, ||g_other - g_ref|| / ||g_ref|| over all
+    parameters together; ``grad_rel_param`` and ``worst_param``, the largest
+    such ratio of one parameter and its name (a parameter whose every
+    gradient is near Adam's eps, as FCN-8s's conv5 and fc layers at init,
+    carries float32 summation noise of a few 1e-3 of its own norm);
+    ``step_err_lr``, the largest |p_other - p_ref| / lr over the elements
+    whose |g_ref| exceeds 1e-4 of the largest gradient of the model (Adam's
+    first step is lr * g / (|g| + eps), so where g is near eps or float32
+    noise it may go either way); and ``moved``, the share of the elements
+    with |g_ref| >= 100 eps (where that step is at least 0.99 lr) that the
+    step changed."""
+    others = dict(other.model.named_parameters())
+    grads = {name: (p.grad.detach().cpu().double(), others[name].grad.detach().cpu().double())
+             for name, p in ref.model.named_parameters()}
+    g_max = max(float(g.abs().max()) for g, _ in grads.values())
+    err2 = norm2 = step_err = 0.0
+    worst, worst_rel, moved, checked = "", 0.0, 0, 0
+    for name, p_ref in ref.model.named_parameters():
+        g_ref, g_oth = grads[name]
+        d2, n2 = float(((g_oth - g_ref) ** 2).sum()), float((g_ref ** 2).sum())
+        err2, norm2 = err2 + d2, norm2 + n2
+        rel = (d2 / max(n2, 1e-60)) ** 0.5
+        if rel > worst_rel:
+            worst, worst_rel = name, rel
+        big = g_ref.abs() > 1e-4 * g_max
+        a, b = p_ref.detach().cpu(), others[name].detach().cpu()
+        if big.any():
+            step_err = max(step_err, float((a[big].double() - b[big].double()).abs().max()) / lr)
+        full = g_ref.abs() >= 1e-6  # 100 eps
+        moved += int((a[full] != before[name][full]).sum())
+        checked += int(full.sum())
+    return dict(grad_rel=(err2 / max(norm2, 1e-60)) ** 0.5, grad_rel_param=worst_rel,
+                worst_param=worst, step_err_lr=step_err, moved=moved / max(checked, 1))

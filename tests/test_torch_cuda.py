@@ -508,3 +508,55 @@ def test_single_frame_cli_on_the_card(tmp_path):
     for suffix in (".png", "_disp.png", "_raw.ply", "_pointCloud.npz", "_ROAD.ply", "_ALL.ply",
                    "_times.txt", "_distances.txt"):
         assert (out / f"scene_output{suffix}").exists(), suffix
+
+
+def _card_against_cpu_step(make_trainer, model, batch, lr, cuda):
+    """One train step from the same parameters on the CPU and on the card:
+    the losses within rel 1e-4, the gradients within 1e-3 of their norm
+    (all parameters together) and 1e-2 of it in each parameter, the
+    post-step parameters within 1% of lr where |g| > 1e-4 of the model's
+    largest (the rule of ``probes.train_step_agreement``)."""
+    import copy
+
+    from semantic_depth_tpu_torch.utils.probes import train_step_agreement
+
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    card = make_trainer(copy.deepcopy(model), cuda)
+    cpu = make_trainer(model, "cpu")
+    got, want = card.train_batch(*batch), cpu.train_batch(*batch)
+    for k in ("loss", "image_loss", "smooth_loss", "lr_loss"):
+        if k in want:
+            assert got[k] == pytest.approx(want[k], rel=1e-4), k
+    agree = train_step_agreement(cpu, card, before, lr)
+    assert agree["grad_rel"] < 1e-3 and agree["grad_rel_param"] < 1e-2, agree
+    assert agree["step_err_lr"] < 1e-2, agree
+    assert agree["moved"] > 0.99, agree
+    return got, want
+
+
+def test_fcn_train_step_on_the_card_matches_the_cpu(cuda):
+    from semantic_depth_tpu_torch.config import TrainConfig
+    from semantic_depth_tpu_torch.train.trainer import FCNTrainer
+
+    rng = np.random.default_rng(11)
+    images = rng.uniform(0, 255, (2, 64, 128, 3)).astype(np.float32)
+    labels = np.eye(3, dtype=np.float32)[rng.integers(0, 3, (2, 64, 128))]
+    cfg = TrainConfig(image_shape=(64, 128))
+    model = FCN8s(dropout_keep_prob=1.0, width_mult=0.125, fc_channels=32,
+                  generator=torch.Generator().manual_seed(0))
+    got, want = _card_against_cpu_step(
+        lambda m, d: FCNTrainer(cfg, model=m, device=d), model, (images, labels),
+        cfg.learning_rate, cuda)
+    assert np.abs(got["cm"] - want["cm"]).sum() / 2 <= max(1, 1e-3 * want["cm"].sum())
+
+
+def test_monodepth_train_step_on_the_card_matches_the_cpu(cuda):
+    from semantic_depth_tpu_torch.train.monodepth_trainer import (
+        MonodepthTrainConfig, MonodepthTrainer)
+
+    rng = np.random.default_rng(12)
+    left = rng.uniform(0, 1, (2, 128, 256, 3)).astype(np.float32)
+    cfg = MonodepthTrainConfig()
+    model = Monodepth(width_mult=0.0625, generator=torch.Generator().manual_seed(0))
+    _card_against_cpu_step(lambda m, d: MonodepthTrainer(cfg, model=m, device=d), model,
+                           (left, np.roll(left, -4, axis=2)), cfg.learning_rate, cuda)

@@ -1,4 +1,4 @@
-"""The PyTorch port stands alone: no JAX, flax, optax, msgpack or matplotlib
+"""The PyTorch port stands alone: no JAX, flax, optax, orbax, msgpack or matplotlib
 (the card host has neither of the last two), and nothing of the JAX package
 ``semantic_depth_tpu``."""
 
@@ -10,7 +10,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "semantic_depth_tpu_torch"
-_BANNED_ROOTS = {"jax", "jaxlib", "flax", "optax", "msgpack", "matplotlib"}
+_BANNED_ROOTS = {"jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "matplotlib"}
 
 
 def _banned(module: str) -> bool:
@@ -48,9 +48,14 @@ def test_importing_the_port_loads_no_jax_package_module():
         "semantic_depth_tpu_torch.cli, semantic_depth_tpu_torch.cli.common, "
         "semantic_depth_tpu_torch.cli.semantic_depth, semantic_depth_tpu_torch.cli.sequence, "
         "semantic_depth_tpu_torch.io.artifacts, semantic_depth_tpu_torch.models.weights, "
-        "semantic_depth_tpu_torch.ops.s2d; "
+        "semantic_depth_tpu_torch.ops.s2d, semantic_depth_tpu_torch.ops.sampler, "
+        "semantic_depth_tpu_torch.models.init, semantic_depth_tpu_torch.train.metrics, "
+        "semantic_depth_tpu_torch.train.data, semantic_depth_tpu_torch.train.stereo_data, "
+        "semantic_depth_tpu_torch.train.trainer, semantic_depth_tpu_torch.train.monodepth_trainer, "
+        "semantic_depth_tpu_torch.cli.fcn, semantic_depth_tpu_torch.cli.monodepth_train, "
+        "semantic_depth_tpu_torch.utils.make_mockup; "
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('semantic_depth_tpu', 'flax', 'optax', 'msgpack', 'matplotlib'))))"
+        "('semantic_depth_tpu', 'flax', 'optax', 'orbax', 'msgpack', 'matplotlib'))))"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120, check=True)

@@ -1,5 +1,6 @@
 """Shared helpers of the ``test_torch_*`` files: parameters for the JAX and
-PyTorch networks made from a numpy seed, so both sides see the same weights."""
+PyTorch networks made from a numpy seed, so both sides see the same weights,
+and both sides' parameters as flat dicts in flax's layout."""
 
 import jax
 import jax.numpy as jnp
@@ -28,3 +29,21 @@ def numpy_params(module, *inputs, seed=0, method=None):
         return rng.normal(0.0, std, size=shape).astype(np.float32)
 
     return jax.tree.map(fill, shapes)
+
+
+def flax_flat(tree):
+    """A flax variable tree as {"layer.kernel" / "layer.bias": numpy array}."""
+    return {f"{layer}.{kind}": np.asarray(v) for layer, leaf in tree["params"].items()
+            for kind, v in leaf.items()}
+
+
+def port_flat(module, grads=False):
+    """A torch module's parameters (or their gradients) keyed and laid out
+    as ``flax_flat`` gives the flax tree's."""
+    out = {}
+    for name, p in module.named_parameters():
+        t = (p.grad if grads else p).detach()
+        layer, kind = name.rsplit(".", 1)
+        out[f"{layer}.{'kernel' if kind == 'weight' else 'bias'}"] = (
+            t.permute(2, 3, 1, 0) if kind == "weight" else t).numpy()
+    return out
