@@ -68,15 +68,37 @@ either is missing or any check fails. Phases:
    weights through ``build_pipeline`` and one ``process_batch`` of 8 frames
    (finite outputs, the grid mode's launches), and the reloaded networks'
    forward bit-equal to the trainers'. Step ms, images or pairs per second,
-   peak device memory and the CLIs' seconds.
+   peak device memory and the CLIs' seconds;
+10. frozen serving and the tools: (a) ``export.export_pipeline`` of the
+   bfloat16 grid-mode program for (8, 1024, 2048, 3) uint8 batches,
+   scalars only; its size, its load seconds in a fresh process; the 8
+   scene frames at two focals (the config's and 0.8 of it) against live
+   ``process_batch`` with deterministic cuDNN on both sides (rw_found equal,
+   distances within 1e-4 m, the max difference printed), the launches
+   counted inside the ops (K1 1, K2 4, K3 1), frozen and live frames/s in
+   turns; (b) the float32 exact-mode single-frame program with full
+   outputs: every field equal to ``process_frame``'s, K4 launched once;
+   (c) inside phase 8's weights, ``cli.export_pipeline`` and both CLIs with
+   ``--use_frozen`` as subprocesses (the single frame's ``--save_data``
+   file names and ``_distances.txt`` equal to phase 8's live run, both with
+   deterministic cuDNN; the sequence over the 8 PNGs with a ``--batch 3``
+   program: a ragged tail, 8 overlay PNGs and 8 ``_rw.ply``); (d) the
+   native PLY library loaded, a 131072-point write native against numpy
+   ``savetxt``, byte-equal; (e) ``cli.monodepth_infer`` over the 8 PNGs,
+   ``utils.video`` writing them as an mp4 that ``cli.segment_video`` reads
+   back (8 frames), ``render_points`` of the phase-3 scene cloud equal on
+   the card and the CPU, and one ``process_batch`` under ``runtime.trace``
+   whose trace holds its ``annotate`` span and kernel events.
 
 The second-to-last lines are the card's name and power limit and one JSON
-object with the kernels' numbers; the last line is
+object with the kernels' numbers (``frozen_launches``: phase 10's programs');
+the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import os
@@ -994,13 +1016,23 @@ def phase_native_end_to_end(dev, counters, frames, n_timed=7):
     return dict(batch_s_median=med, frames_per_s=4.0 / med, batch_s_all=times, launches=counts)
 
 
-def _run_cli(name, args, repo, cwd=None):
+# runs a module as ``python -m`` does, with cuDNN's deterministic algorithms
+# (its default ones need not give the same bits twice)
+_DETERMINISTIC = ("import runpy, sys, torch; torch.backends.cudnn.deterministic = True; "
+                  "torch.backends.cudnn.benchmark = False; mod = sys.argv[1]; "
+                  "sys.argv = sys.argv[1:]; runpy.run_module(mod, run_name='__main__', "
+                  "alter_sys=True)")
+
+
+def _run_cli(name, args, repo, cwd=None, deterministic=False):
     """One CLI as a subprocess on the card, run in ``cwd`` (the repo by
-    default); its failure fails the run."""
+    default); its failure fails the run. ``deterministic``: with cuDNN's
+    deterministic algorithms."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(p for p in (repo, env.get("PYTHONPATH")) if p)
     t0 = time.time()
-    proc = subprocess.run([sys.executable, "-m", *args], cwd=cwd or repo, env=env,
+    launch = ["-c", _DETERMINISTIC] if deterministic else ["-m"]
+    proc = subprocess.run([sys.executable, *launch, *args], cwd=cwd or repo, env=env,
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                           timeout=600)
     secs = time.time() - t0
@@ -1051,7 +1083,7 @@ def phase_clis(dev, frames):
         single = os.path.join(work, "single")
         secs, _ = _run_cli("single frame --save_data", [sd, "--input_frame", paths[0], *weights,
                                                          "--save_data", "--results_dir", single],
-                           repo)
+                           repo, deterministic=True)
         base = os.path.join(single, "scene_0", "scene_0_output")
         suffixes = [".png", "_only_segmentation.png", "_disp.png", "_road_mask.png",
                     "_fence_mask.png", "_raw.ply", "_pointCloud.npz", "_ROAD.ply", "_ALL.ply",
@@ -1092,6 +1124,7 @@ def phase_clis(dev, frames):
                             frame_s=float(summary[3]) / 8.0, process_frame_s=secs / 8.0)
         res["weights_write_s"] = write_s
         res["weights_mib"] = mb
+        res["frozen"] = phase_frozen_clis(work, paths, weights, repo, single)
     finally:
         shutil.rmtree(work, ignore_errors=True)  # 660 MB of weights: none of it kept
     return res
@@ -1312,6 +1345,267 @@ def phase_trainers(dev, counters, frames):
     return res
 
 
+def measurable(pipe, frames):
+    """Make ``pipe`` measure a road width on ``frames``; returns the (focal,
+    disparity multiplier) pairs to serve them with. Seeded random networks
+    give a near-constant logit map (std ~0.02 at 1024x2048) that puts no
+    pixel over the road threshold, so every distance is nan. A +2 bias on
+    the road logit makes every pixel road; a multiplier of 250 px at the
+    config's focal (scaled with the focal, so the cloud stays put) puts the
+    cloud ~10 m out; and the measuring depth moves to the median depth of
+    the denoised road cloud, so its slab holds points on any card and in
+    any compute type."""
+    with torch.no_grad():
+        pipe.fcn.upscore8.bias[0] += 2.0
+    focal = pipe.config.camera.focal
+    out = pipe.process_batch(frames, focal, 250.0)
+    z = out.road_cloud.xyz[..., 2][out.road_cloud.valid]
+    check(z.numel() > 0, f"a +2 road bias leaves {z.numel()} denoised road points")
+    depth = -float(z.median()) + pipe.config.rw_depth_offset
+    pipe.config = dataclasses.replace(pipe.config, depth=depth)
+    return [(focal, 250.0), (0.8 * focal, 200.0)]
+
+
+def phase_frozen(dev, counters, frames, n_timed=7):
+    """Phase 10 (a), (b): frozen programs against the live pipeline, and
+    (e) one process_batch under ``runtime.trace``."""
+    from semantic_depth_tpu_torch import export, runtime
+
+    res = {}
+    deterministic = dict(enabled=True, benchmark=False, deterministic=True, allow_tf32=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        log("[phase 10] frozen serving (a): batched (8, 1024, 2048, 3) uint8 program, "
+            "bfloat16, grid mode, scalars only")
+        pipe = full_pipeline(dev, "bfloat16", "grid")
+        scalars = measurable(pipe, frames)
+        t0 = time.time()
+        path = export.export_pipeline(pipe, os.path.join(tmp, "b8.pt2"), tuple(frames.shape),
+                                      batched=True, scalars_only=True)
+        export_s = time.time() - t0
+        size_mb = os.path.getsize(path) / 1e6
+        code = ("import sys, time; t0 = time.perf_counter(); "
+                "from semantic_depth_tpu_torch.export import load_pipeline; "
+                "call = load_pipeline(sys.argv[1]); print(time.perf_counter() - t0)")
+        repo = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, "-c", code, path], cwd=repo, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, timeout=300)
+        load_process_s = time.time() - t0
+        check(proc.returncode == 0, f"a fresh process loads the program ({proc.stdout[-300:]})")
+        load_s = float(proc.stdout.strip().splitlines()[-1])
+        call = export.load_pipeline(path)
+        diffs, launches = {}, None
+        with torch.backends.cudnn.flags(**deterministic):
+            for f, mult in scalars:
+                live = pipe.process_batch(frames, focal=f, disparity_mult=mult)
+                torch.cuda.synchronize()
+                reset_counts(counters)
+                rw, f2f, found = call(frames, f, mult)
+                torch.cuda.synchronize()
+                launches = read_counts(counters)
+                check(launches == GRID_LAUNCHES,
+                      f"frozen focal {f:g}: launches per batch inside the program {launches}")
+                check(torch.equal(found, live.rw_found) and bool(found.any()),
+                      f"frozen focal {f:g}: rw_found equal ({int(found.sum())} of 8 found)")
+                d = max(float(torch.nan_to_num((a - b).abs(), nan=0.0).max())
+                        for a, b in ((rw, live.dist_rw), (f2f, live.dist_f2f)))
+                same_nan = torch.equal(rw.isnan(), live.dist_rw.isnan()) and torch.equal(
+                    f2f.isnan(), live.dist_f2f.isnan())
+                bits = bool(torch.equal(rw.nan_to_num(), live.dist_rw.nan_to_num())
+                            and torch.equal(f2f.nan_to_num(), live.dist_f2f.nan_to_num()))
+                check(same_nan and d <= 1e-4,
+                      f"frozen focal {f:g}: dist_rw / dist_f2f within 1e-4 m of live "
+                      f"process_batch (max diff {d}; bit-equal: {bits})")
+                diffs[f"{f:g}"] = dict(max_abs_diff_m=d, bit_equal=bits,
+                                       dist_rw=rw.tolist(), dist_f2f=f2f.tolist())
+        live_t, frozen_t = [], []
+        for i in range(2 * n_timed):  # live, frozen, frozen, live, ...
+            first_live = i % 2 == 0
+            for which in ((0, 1) if first_live else (1, 0)):
+                t0 = time.perf_counter()
+                if which == 0:
+                    pipe.process_batch(frames, *scalars[0])
+                else:
+                    call(frames, *scalars[0])
+                torch.cuda.synchronize()
+                (live_t if which == 0 else frozen_t).append(time.perf_counter() - t0)
+        live_fps = 8.0 / statistics.median(live_t)
+        frozen_fps = 8.0 / statistics.median(frozen_t)
+        log(f"  export {export_s:.1f} s, program {size_mb:.1f} MB, load {load_s:.2f} s in a "
+            f"fresh process ({load_process_s:.1f} s the process); frozen {frozen_fps:.2f} "
+            f"frames/s, live process_batch {live_fps:.2f} ({2 * n_timed} batches each, in turns)")
+        res["batched_bf16"] = dict(export_s=export_s, program_mb=size_mb, load_s=load_s,
+                                   load_process_s=load_process_s, launches=launches,
+                                   focals=diffs, frozen_frames_per_s=frozen_fps,
+                                   live_frames_per_s=live_fps, frozen_batch_s=frozen_t,
+                                   live_batch_s=live_t)
+
+        log("[phase 10] (e) one process_batch under runtime.trace")
+        with runtime.trace(os.path.join(tmp, "trace")) as tr:
+            with runtime.annotate("smoke_process_batch"):
+                pipe.process_batch(frames)
+                torch.cuda.synchronize()
+        with open(tr.path) as fh:
+            events = json.load(fh)["traceEvents"]
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        check(any(e.get("name") == "smoke_process_batch" for e in events) and kernels > 0,
+              f"the trace holds the annotated span and {kernels} kernel events")
+        res["trace"] = dict(events=len(events), kernel_events=kernels)
+        del pipe, call
+        torch.cuda.empty_cache()
+
+        log("[phase 10] frozen serving (b): single (1024, 2048, 3) frame, float32, exact mode, "
+            "full outputs")
+        pipe = full_pipeline(dev, "float32", "exact")
+        focal, mult = measurable(pipe, frames[:1])[0]
+        t0 = time.time()
+        path = export.export_pipeline(pipe, os.path.join(tmp, "exact.pt2"),
+                                      tuple(frames.shape[1:]), scalars_only=False)
+        export_s = time.time() - t0
+        call = export.load_pipeline(path)
+        with torch.backends.cudnn.flags(**deterministic):
+            live = pipe.process_frame(frames[0], focal, mult)
+            torch.cuda.synchronize()
+            reset_counts(counters)
+            got = call(frames[0], focal, mult)
+            torch.cuda.synchronize()
+            launches = read_counts(counters)
+        check(launches == EXACT_LAUNCHES, f"exact program: launches inside it {launches}")
+        bad = _outputs_mismatch(got, live)
+        check(not bad and bool(live.rw_found), f"exact program: every FrameOutputs field "
+              f"equals live process_frame (differ: {bad}; dist_rw {float(live.dist_rw)} m, "
+              f"{int(live.road_cloud.valid.sum())} road points)")
+        res["single_exact_f32"] = dict(export_s=export_s, launches=launches,
+                                       program_mb=os.path.getsize(path) / 1e6)
+        del pipe, call, live, got
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_frozen_clis(work, paths, weights, repo, single):
+    """Phase 10 (c), inside phase 8's weights: ``cli.export_pipeline`` and
+    both CLIs with ``--use_frozen``, against phase 8's live single run."""
+    log("[phase 10] (c) the CLIs with --use_frozen")
+    exp = "semantic_depth_tpu_torch.cli.export_pipeline"
+    res = {}
+    full, b3 = os.path.join(work, "full.pt2"), os.path.join(work, "b3.pt2")
+    # the two exports at once (each process is mostly start-up and tracing)
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        jobs = [ex.submit(_run_cli, name, [exp, *weights, "--full_outputs", *extra], repo)
+                for name, extra in (("export_pipeline --full_outputs", ["--output", full]),
+                                    ("export_pipeline --batch 3 --full_outputs",
+                                     ["--batch", "3", "--output", b3]))]
+        (res["export_full_s"], _), (res["export_batch3_s"], _) = (j.result() for j in jobs)
+    frozen = os.path.join(work, "frozen_single")
+    res["single_save_data_s"], _ = _run_cli("single frame --use_frozen --save_data", [
+        "semantic_depth_tpu_torch.cli.semantic_depth", "--input_frame", paths[0],
+        "--use_frozen", full, "--save_data", "--results_dir", frozen], repo, deterministic=True)
+    live_dir, frozen_dir = (os.path.join(d, "scene_0") for d in (single, frozen))
+    names = sorted(os.listdir(live_dir))
+    check(sorted(os.listdir(frozen_dir)) == names,
+          f"--use_frozen --save_data: the live run's {len(names)} artifact file names")
+    text = [open(os.path.join(d, "scene_0_output_distances.txt")).read()
+            for d in (live_dir, frozen_dir)]
+    check(text[0] == text[1], f"--use_frozen: _distances.txt equals the live run's "
+          f"({text[1].strip()!r})")
+    out_dir = os.path.join(work, "frozen_seq")
+    secs, text = _run_cli("sequence --use_frozen --batch 3", [
+        "semantic_depth_tpu_torch.cli.sequence", "--input_folder",
+        os.path.join(os.path.dirname(paths[0]), "*.png"), "--use_frozen", b3, "--batch", "3",
+        "--results_dir", out_dir, "--output_name", "seq"], repo)
+    imgs = sorted(os.listdir(os.path.join(out_dir, "seq", "result_sequence_imgs")))
+    plys = sorted(os.listdir(os.path.join(out_dir, "seq", "result_sequence_ply")))
+    check(imgs == [f"scene_{i}.png" for i in range(8)]
+          and plys == [f"scene_{i}_rw.ply" for i in range(8)],
+          "sequence --use_frozen --batch 3 (a ragged tail of 2): 8 overlay PNGs, 8 _rw.ply")
+    res["sequence_batch3_s"] = secs
+    res["sequence_batch3_loop_s"] = float(text.strip().splitlines()[-1].split()[3])
+    return res
+
+
+def phase_native_ply_and_tools(dev, scene_cloud, frames):
+    """Phase 10 (d) the native PLY writer, (e) the tools."""
+    import cv2
+
+    from semantic_depth_tpu_torch.io import ply
+    from semantic_depth_tpu_torch.native import build as native
+    from semantic_depth_tpu_torch.utils.render_ply import render_points
+    from semantic_depth_tpu_torch.utils.video import create_video_from_frames
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    res = {}
+    log("[phase 10] (d) native PLY: a 131072-row cloud")
+    xyz, _, rgb = scene_cloud
+    pts, cols = xyz[0].cpu().numpy(), rgb[0].cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        check(native.library() is not None, f"the native library loads ({native.library_path()})")
+        cloud = ply.PlyCloud(pts, cols, os.path.join(tmp, "native"))
+        keep = cloud.points3d[:, 2] > cloud.points3d[:, 2].min()
+        rows, row_cols = cloud.points3d[keep], cloud.colors[keep]
+        header = ply._PLY_HEADER.format(vertex_count=len(rows))
+        native_ms, numpy_ms = [], []
+        for _ in range(3):
+            before = ply._native_write.calls
+            t0 = time.perf_counter()
+            cloud.save()
+            native_ms.append((time.perf_counter() - t0) * 1e3)
+            check(ply._native_write.calls == before + 1, "PlyCloud.save wrote through the "
+                  "native library")
+            t0 = time.perf_counter()
+            ply._numpy_write(os.path.join(tmp, "numpy.ply"), header, rows, row_cols)
+            numpy_ms.append((time.perf_counter() - t0) * 1e3)
+        with open(os.path.join(tmp, "native.ply"), "rb") as a, \
+                open(os.path.join(tmp, "numpy.ply"), "rb") as b:
+            same = a.read() == b.read()
+        check(same, f"native and numpy PLY byte-equal ({len(rows)} rows)")
+        t0 = time.perf_counter()
+        back, _ = ply.read_ply(os.path.join(tmp, "native.ply"))
+        read_ms = (time.perf_counter() - t0) * 1e3
+        check(back.shape == (len(rows), 3), "read_ply reads the rows back")
+        log(f"  write {len(pts)} points: native {statistics.median(native_ms):.1f} ms, numpy "
+            f"savetxt {statistics.median(numpy_ms):.1f} ms (medians of 3); native read "
+            f"{read_ms:.1f} ms")
+        res["ply"] = dict(points=len(pts), rows=len(rows), native_write_ms=native_ms,
+                          numpy_write_ms=numpy_ms, native_read_ms=read_ms)
+
+        log("[phase 10] (e) the tools")
+        fdir = os.path.join(tmp, "frames")
+        os.makedirs(fdir)
+        for i, img in enumerate(frames.cpu().numpy()):
+            cv2.imwrite(os.path.join(fdir, f"scene_{i}.png"), img)
+        video = create_video_from_frames(os.path.join(fdir, "*.png"),
+                                         os.path.join(tmp, "scenes.mp4"), fps=10)
+        # both tools at once, seeded random weights
+        with concurrent.futures.ThreadPoolExecutor(2) as ex:
+            infer = ex.submit(_run_cli, "monodepth_infer over 8 PNGs", [
+                "semantic_depth_tpu_torch.cli.monodepth_infer", "--input",
+                os.path.join(fdir, "*.png"), "--out_dir", os.path.join(tmp, "disp"),
+                "--save_npy"], repo)
+            seg = ex.submit(_run_cli, "segment_video", [
+                "semantic_depth_tpu_torch.cli.segment_video", "--input_video", video,
+                "--semantic_model", "random", "--output_video", os.path.join(tmp, "seg.mp4")],
+                repo)
+            (res["monodepth_infer_s"], _), (res["segment_video_s"], text) = (
+                infer.result(), seg.result())
+        disp = sorted(os.listdir(os.path.join(tmp, "disp")))
+        check(len(disp) == 16, f"monodepth_infer: 8 _disp.png and 8 _disp.npy ({len(disp)})")
+        n = int(text.strip().splitlines()[-1].split()[1])
+        cap = cv2.VideoCapture(os.path.join(tmp, "seg.mp4"))
+        count = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        cap.release()
+        check(n == count == 8, f"segment_video: 8 frames read back and written ({n}, {count})")
+        t0 = time.perf_counter()
+        on_card = render_points(pts, cols, device=dev)
+        card_s = time.perf_counter() - t0
+        on_cpu = render_points(pts, cols, device="cpu")
+        painted = float((on_card != 255).any(-1).mean())
+        check(np.array_equal(on_card, on_cpu) and painted > 0.01,
+              f"render_points of the scene cloud: the card's image equals the CPU's "
+              f"({painted:.3f} of the pixels painted)")
+        res["render"] = dict(card_s=card_s, painted=painted)
+    return res
+
+
 def codec_info():
     """Which image codecs import on this host (information, not a check)."""
     code = ("import importlib\n"
@@ -1378,6 +1672,8 @@ def main() -> int:
           "resnet50 launches per batch equal the vgg path's")
     entry["clis"] = phase_clis(dev, frames)
     trainers = phase_trainers(dev, counters, frames)
+    frozen = phase_frozen(dev, counters, frames)
+    frozen.update(phase_native_ply_and_tools(dev, scene_cloud, frames))
 
     for name, row in rows.items():
         row["launches"] = e2e["bfloat16_exact" if name == "exact_knn" else "float32"][
@@ -1385,13 +1681,15 @@ def main() -> int:
         if name in native_rows:
             row["native"] = dict(native_rows[name],
                                  launches=native["end_to_end"]["launches"][name])
+        row["frozen_launches"] = frozen["single_exact_f32" if name == "exact_knn" else
+                                        "batched_bf16"]["launches"][name]
     summary = dict(card=smi, build_s=build_s, geometry=geom, end_to_end=e2e, native=native,
-                   entry_points=entry, trainers=trainers, kernels=list(rows.values()),
-                   wall_s=time.time() - t_start)
+                   entry_points=entry, trainers=trainers, frozen=frozen,
+                   kernels=list(rows.values()), wall_s=time.time() - t_start)
     log("summary: " + json.dumps(summary))
     log(f"[done] wall {time.time() - t_start:.1f} s")
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "source", "replaces", "launches", "frozen_launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(smi)
     log(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows.values()]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,12 +8,13 @@ back-projected into a point cloud, denoised, and measured (road width "rw"
 or fence-to-fence "f2f").
 
 This package ports the fused frame program (``pipeline.SemanticDepthPipeline``
-with ``process_frame`` / ``process_batch`` / ``process_frame_staged``) and the
-PLY outlier-removal tool (``utils.outlier_removal``). The four TPU kernels
-on their paths are hand-written CUDA C++ for ``sm_90a`` under ``csrc/``,
-built by ``nvcc`` at first use and bound with ``ctypes`` (``ops/_cuda.py``);
-each sits beside its plain PyTorch version, which CPU tensors take. The
-package imports nothing of JAX or of ``semantic_depth_tpu``.
+with ``process_frame`` / ``process_batch`` / ``process_frame_staged``), its
+frozen form (``export.py``), the CLIs, the trainers and the tools. The four
+TPU kernels on its paths are hand-written CUDA C++ for ``sm_90a`` under
+``csrc/``, built by ``nvcc`` at first use and bound with ``ctypes``
+(``ops/_cuda.py``), each a dispatcher op (``torch.ops.sd_torch.*``) beside
+its plain PyTorch version, which CPU tensors take. The package imports
+nothing of JAX or of ``semantic_depth_tpu``.
 """
 
 __version__ = "0.1.0"

@@ -140,7 +140,12 @@ def save_disparity_png(disp: np.ndarray, output_name: str, oh: int, ow: int) -> 
     d = host_resize((disp / max(float(np.max(disp)), 1e-9) * 255.0).astype(np.float32),
                     oh, ow, cubic=False)
     rgba = gray_colormap_rgba(np.clip(d, 0, 255).astype(np.uint8))
-    path = f"{output_name}_disp.png"
+    write_rgba_png(f"{output_name}_disp.png", rgba)
+
+
+def write_rgba_png(path: str, rgba: np.ndarray) -> None:
+    """An (H, W, 4) RGBA uint8 image as a PNG, as ``plt.imsave`` writes its
+    pixels."""
     if _HAS_CV2:
         cv2.imwrite(path, rgba[..., [2, 1, 0, 3]])
         return
@@ -317,11 +322,87 @@ def load_mono_params(model: Monodepth, path: str) -> Monodepth:
         f"no monodepth weights at {path} (no monodepth.msgpack in {base}). {_CONVERT_HINT}")
 
 
+class FrozenPipeline:
+    """Serves frames from a program of ``cli.export_pipeline`` (``export.py``):
+    the reference's ``--use_frozen optimized_graph.pb`` path
+    (semantic_depth.py:472-513), with the whole fused program in the
+    artifact. No model code runs. The frame shape (and batch, for a batched
+    export) and the device are fixed at export, like the reference's frozen
+    graph; ``self.batch`` is the program's batch (None: single-frame)."""
+
+    def __init__(self, path: str, cfg: PipelineConfig, device: Optional[str] = None):
+        from ..export import load_pipeline, load_pipeline_meta
+
+        if not os.path.isfile(path):
+            raise SystemExit(f"--use_frozen: no frozen program at {path}")
+        self._call = load_pipeline(path)
+        if device is not None and torch.device(device).type != self._call.device.type:
+            raise SystemExit(f"--use_frozen: {path} was exported for {self._call.device}; "
+                             f"serve it there or export again on {device}")
+        shape = self._call.frame_shape
+        self.batch = shape[0] if len(shape) == 4 else None
+        meta = load_pipeline_meta(path)
+        if meta is not None:
+            # depth, approach and camera are fixed inside the program: the
+            # scalar defaults come from the EXPORT config, and a serving flag
+            # that disagrees is ignored with a warning
+            for key, got in (("depth", cfg.depth), ("approach", cfg.approach),
+                             ("input_height", cfg.input_height),
+                             ("input_width", cfg.input_width)):
+                if meta.get(key) is not None and meta[key] != got:
+                    warnings.warn(f"--use_frozen: {key}={got} is ignored; the program was "
+                                  f"exported with {key}={meta[key]} (fixed inside it)")
+            cfg = dataclasses.replace(
+                cfg,
+                camera=cfg.camera.with_focal(meta["camera_focal"]),
+                disparity_multiplier=meta["disparity_multiplier"],
+                depth=meta["depth"],
+                approach=meta["approach"],
+            )
+        self.config = cfg
+
+    def _run(self, frames, width, focal, disparity_mult):
+        from types import SimpleNamespace
+
+        from ..pipeline import resolve_frame_scalars
+
+        focal, disparity_mult = resolve_frame_scalars(self.config, width, focal, disparity_mult)
+        out = self._call(frames, focal, disparity_mult)
+        if isinstance(out, (tuple, list)):  # a scalars-only program
+            return SimpleNamespace(dist_rw=out[0], dist_f2f=out[1], rw_found=out[2])
+        return out
+
+    def process_frame(self, frame, focal=None, disparity_mult=None):
+        return self._run(frame, frame.shape[1], focal, disparity_mult)
+
+    def process_batch(self, frames, focal=None, disparity_mult=None):
+        """A batch of the program's batch; a single-frame program serves
+        batches of one (each output gains the leading batch axis)."""
+        if self.batch is not None:
+            return self._run(frames, frames.shape[2], focal, disparity_mult)
+        if len(frames) != 1:
+            raise ValueError(f"a single-frame program serves batches of one, got {len(frames)}; "
+                             "export with cli.export_pipeline --batch N")
+        out = self._run(frames[0], frames.shape[2], focal, disparity_mult)
+        if isinstance(out, FrameOutputs):
+            return FrameOutputs(**{f.name: _batch_of_one(getattr(out, f.name))
+                                   for f in dataclasses.fields(out)})
+        return type(out)(**{k: v[None] for k, v in vars(out).items()})
+
+
+def _batch_of_one(val):
+    if isinstance(val, MaskedCloud):
+        return MaskedCloud(val.xyz[None], val.rgb[None], val.valid[None])
+    return val[None]
+
+
 def require_dense_outputs(out, flag_context: str):
     """Fail with an actionable message when outputs carry only the scalars
-    (frozen, scalars-only serving) on a path that writes dense artifacts."""
+    (a scalars-only frozen program) on a path that writes dense artifacts."""
     if not hasattr(out, "overlay_small"):
-        raise SystemExit(f"{flag_context} needs dense outputs; these carry only the distances")
+        raise SystemExit(
+            f"{flag_context} needs dense outputs; this frozen program was exported "
+            "scalars-only: re-export with cli.export_pipeline --full_outputs")
     return out
 
 
@@ -342,10 +423,7 @@ def cli_device(args) -> str:
 
 
 def reject_queued_flags(args) -> None:
-    """``--use_frozen PATH`` and ``--mesh`` select serving paths this port
-    does not have yet; a bare ``--use_frozen`` stays the reference's no-op."""
-    if args.use_frozen:
-        raise SystemExit("--use_frozen PATH: frozen serving is not ported yet")
+    """``--mesh`` selects a serving path this port does not have yet."""
     if args.mesh:
         raise SystemExit("--mesh: multi-device serving is not ported yet")
 
@@ -393,12 +471,13 @@ def build_pipeline(
 
 
 def fetch(out: FrameOutputs, fields: Optional[Sequence[str]] = None) -> Callable[[], FrameOutputs]:
-    """Start copying ``fields`` of ``out`` (all by default) to the host and
+    """Start copying ``fields`` of ``out`` (all by default; ``out`` may also
+    be a scalars-only frozen program's distances) to the host and
     return a function that waits for the copies and gives FrameOutputs of
     numpy arrays (the fields not fetched are None). On the card the copies
     go into pinned memory without blocking, so the host can start the next
     frame before this one is done; an event marks their end."""
-    names = [f.name for f in dataclasses.fields(out)] if fields is None else list(fields)
+    names = [f.name for f in dataclasses.fields(FrameOutputs)] if fields is None else list(fields)
     on_card = out.dist_rw.is_cuda
 
     def host(t: torch.Tensor) -> torch.Tensor:
@@ -422,7 +501,7 @@ def fetch(out: FrameOutputs, fields: Optional[Sequence[str]] = None) -> Callable
     def wait() -> FrameOutputs:
         if done is not None:
             done.synchronize()
-        vals = dict.fromkeys(f.name for f in dataclasses.fields(out))
+        vals = dict.fromkeys(f.name for f in dataclasses.fields(FrameOutputs))
         for name, val in copies.items():
             if isinstance(val, MaskedCloud):
                 val = MaskedCloud(val.xyz.numpy(), val.rgb.numpy(), val.valid.numpy())

@@ -5,7 +5,9 @@
   stage times and, with ``--save_data``, the artifact suite;
 * ``--input_frame=''`` runs the 5-image Munich sweep over focal lengths
   [380, 580] with MAE accounting and best-focal reporting; ``--f`` pins a
-  single focal length.
+  single focal length;
+* ``--use_frozen PATH`` serves from a program of ``cli.export_pipeline``
+  (every focal of the sweep through the one program).
 
 Runs on the card (``--CUDA_DEVICE_NUMBER`` picks it) unless ``--device cpu``:
 
@@ -63,8 +65,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--is_city", action="store_true")
     p.add_argument("--results_dir", default="results")
     p.add_argument("--use_frozen", nargs="?", const=None, default=None, metavar="PATH",
-                   help="frozen serving is not ported yet; the bare flag "
-                        "is the reference's no-op")
+                   help="serve from a program written by cli.export_pipeline (its "
+                        "export config wins); the bare flag is the reference's no-op")
     p.add_argument("--use_xla", action="store_true", help="(compat no-op)")
     p.add_argument("--CUDA_DEVICE_NUMBER", default="0", help="the CUDA card to run on")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -106,6 +108,8 @@ def process_one(pipe, cfg, input_frame, output_name, args, focal=None):
         out, stage_times = pipe.process_frame_staged(frame, focal=focal)
     else:
         out = pipe.process_frame(frame, focal=focal)
+    if args.save_data:
+        common.require_dense_outputs(out, "--save_data")
     fields = None if args.save_data else ("dist_rw", "dist_f2f")
     out = common.fetch(out, fields)()
     dist_rw = float(out.dist_rw)
@@ -118,7 +122,6 @@ def process_one(pipe, cfg, input_frame, output_name, args, focal=None):
             print("Distance from fence to fence:", dist_f2f)
 
     if args.save_data:
-        common.require_dense_outputs(out, "--save_data")
         common.save_frame_artifacts(out, cfg, output_name, frame, args.is_city)
 
     t_global = time.time() - tic_global
@@ -175,9 +178,17 @@ def main(argv=None):
     args = build_arg_parser().parse_args(argv)
     common.reject_queued_flags(args)
     cfg = make_config(args)
-    pipe = common.build_pipeline(
-        cfg, args.semantic_model, args.monodepth_checkpoint,
-        tiny=args.dev_tiny, native_s2d=args.native_s2d, device=common.cli_device(args))
+    if args.use_frozen:
+        if args.profile_stages:
+            raise SystemExit("--profile_stages needs the live pipeline; the frozen program "
+                             "is one opaque program")
+        pipe = common.FrozenPipeline(args.use_frozen, cfg, device=common.cli_device(args))
+    else:
+        pipe = common.build_pipeline(
+            cfg, args.semantic_model, args.monodepth_checkpoint,
+            tiny=args.dev_tiny, native_s2d=args.native_s2d, device=common.cli_device(args))
+    # a frozen program fixes depth, approach and camera: the artifacts and
+    # annotations describe what it computes
     cfg = pipe.config
 
     if args.input_frame:

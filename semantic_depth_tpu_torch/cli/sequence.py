@@ -10,7 +10,8 @@ The card works on frame N+1 while the host writes frame N's artifacts: each
 result starts its copy to pinned host memory as soon as it is queued
 (``common.fetch``), and the host waits for it only after queueing the next
 frame (per frame) or the next batch (``--batch N``). Unreadable frames are
-skipped with a warning.
+skipped with a warning. ``--use_frozen PATH`` serves from a program of
+``cli.export_pipeline`` instead of the live networks.
 
     python -m semantic_depth_tpu_torch.cli.sequence --input_folder 'frames/*.png' \\
         --semantic_model fcn8s.msgpack --monodepth_checkpoint monodepth.msgpack --batch 4
@@ -54,8 +55,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--output_name", default="stuttgart_video")
     p.add_argument("--results_dir", default="results")
     p.add_argument("--use_frozen", nargs="?", const=None, default=None, metavar="PATH",
-                   help="frozen serving is not ported yet; the bare flag "
-                        "is the reference's no-op")
+                   help="serve from a program written by cli.export_pipeline (its "
+                        "export config wins; --batch must be its batch, and a ragged "
+                        "tail is padded with the last frame); the bare flag is the "
+                        "reference's no-op")
     p.add_argument("--use_xla", action="store_true", help="(compat no-op)")
     p.add_argument("--CUDA_DEVICE_NUMBER", default="0", help="the CUDA card to run on")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -73,7 +76,6 @@ def save_sequence_artifacts(out, cfg, output_name, original_hw, result_images_di
                             result_ply_dir):
     """``out``: one frame's outputs as numpy arrays. Returns the road width,
     or None when no line was found."""
-    common.require_dense_outputs(out, "the sequence artifact suite")
     line_found = bool(out.rw_found)
     dist_rw = float(out.dist_rw)
     left, right = out.left_pt_rw, out.right_pt_rw
@@ -100,9 +102,16 @@ def main(argv=None):
     cfg = sequence_pipeline_config(input_height=args.input_height, input_width=args.input_width,
                                    approach=args.approach, depth=args.depth)
     cfg = common.apply_encoder_override(cfg, args.monodepth_encoder)
-    pipe = common.build_pipeline(
-        cfg, args.semantic_model, args.monodepth_checkpoint,
-        tiny=args.dev_tiny, native_s2d=args.native_s2d, device=common.cli_device(args))
+    if args.use_frozen:
+        pipe = common.FrozenPipeline(args.use_frozen, cfg, device=common.cli_device(args))
+        if (pipe.batch or 1) != args.batch:
+            raise SystemExit(f"--use_frozen: the program serves batches of {pipe.batch or 1}; "
+                             f"pass --batch {pipe.batch or 1}")
+        cfg = pipe.config  # the program fixes depth, approach and camera
+    else:
+        pipe = common.build_pipeline(
+            cfg, args.semantic_model, args.monodepth_checkpoint,
+            tiny=args.dev_tiny, native_s2d=args.native_s2d, device=common.cli_device(args))
 
     out_root = os.path.join(args.results_dir, args.output_name)
     result_images_dir = os.path.join(out_root, "result_sequence_imgs")
@@ -139,7 +148,13 @@ def main(argv=None):
         if not items:
             return
         names, hws, imgs = zip(*items)
-        outs = pipe.process_batch(np.stack(imgs))
+        imgs = list(imgs)
+        if args.use_frozen and len(imgs) < args.batch:
+            # a frozen program is fixed to --batch N: pad a ragged tail with
+            # the last frame; drain writes only ``names``, the real frames
+            imgs += [imgs[-1]] * (args.batch - len(imgs))
+        outs = common.require_dense_outputs(pipe.process_batch(np.stack(imgs)),
+                                            "the sequence artifact suite")
         pending.append((names, hws, common.fetch(outs, _FIELDS)))
         while len(pending) > 1:
             drain(pending.pop(0))

@@ -1,6 +1,11 @@
 """ASCII PLY export and import, format-compatible with the reference writer
-(semantic_depth_lib/point_cloud_2_ply.py:33-93); the port's copy of
-``semantic_depth_tpu/io/ply.py``, numpy only.
+(semantic_depth_lib/point_cloud_2_ply.py:33-93); the port of
+``semantic_depth_tpu/io/ply.py``.
+
+Rows are formatted and parsed by the C++ of ``native/`` (built with g++ at
+first use): numpy ``savetxt``/``loadtxt`` take seconds on the 131072-row
+clouds a sequence writes every frame. The numpy path writes the same bytes
+and stays for a machine with no g++.
 
 Header layout (including the indented continuation lines produced by the
 reference's triple-quoted header string) and the ``%f %f %f %d %d %d`` row
@@ -11,7 +16,11 @@ minimum before saving (point_cloud_2_ply.py:87-90).
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
+
+from ..native.build import library as native_library
 
 # The reference embeds the header as an indented triple-quoted string; the
 # leading spaces on continuation lines are part of the file format it emits.
@@ -28,6 +37,38 @@ _PLY_HEADER = (
     "    end_header\n"
     "    "
 )
+
+
+def _native_write(path: str, header: str, pts: np.ndarray, cols: np.ndarray) -> bool:
+    """The rows through native/ply_writer.cpp; False where there is no
+    native library. Counts its writes in ``calls``."""
+    lib = native_library()
+    if lib is None:
+        return False
+    pts = np.ascontiguousarray(pts, np.float64)
+    cols = np.ascontiguousarray(cols, np.float64)
+    rc = lib.write_ply_ascii(path.encode(), header.encode(),
+                             pts.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                             cols.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), pts.shape[0])
+    if rc != 0:
+        raise OSError(f"{path}: the native PLY writer failed (code {rc})")
+    _native_write.calls += 1
+    return True
+
+
+_native_write.calls = 0
+
+
+def _native_read_rows(path: str, header_bytes: int, n_rows: int, n_cols: int):
+    """(n_rows, n_cols) float64 rows through native/ply_reader.cpp, or None
+    (no native library, or fewer rows parsed: numpy then reads them)."""
+    lib = native_library()
+    if lib is None:
+        return None
+    out = np.empty((n_rows, n_cols), np.float64)
+    got = lib.read_ply_rows(path.encode(), header_bytes,
+                            out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), n_rows, n_cols)
+    return out if got == n_rows else None
 
 
 class PlyCloud:
@@ -56,10 +97,17 @@ class PlyCloud:
             pts = self.points3d[mask]
             cols = self.colors[mask]
         path = f"{self.output_name}.ply"
-        with open(path, "w") as f:
-            f.write(_PLY_HEADER.format(vertex_count=len(pts)))
-            np.savetxt(f, np.hstack([pts, cols]), "%f %f %f %d %d %d")
+        header = _PLY_HEADER.format(vertex_count=len(pts))
+        if not _native_write(path, header, pts, cols):
+            _numpy_write(path, header, pts, cols)
         return path
+
+
+def _numpy_write(path: str, header: str, pts: np.ndarray, cols: np.ndarray) -> None:
+    """The numpy path of ``PlyCloud.save``: the same bytes as the native."""
+    with open(path, "w") as f:
+        f.write(header)
+        np.savetxt(f, np.hstack([pts, cols]), "%f %f %f %d %d %d")
 
 
 def write_ply(points3d, colors, output_name) -> str:
@@ -97,13 +145,16 @@ def read_ply(path: str):
                 # later elements (e.g. faces) must not widen the row stride
                 props.append(tok[2].decode())
             elif tok[0] == b"end_header":
+                header_bytes = f.tell()
                 break
             elif tok[0] == b"format" and tok[1] != b"ascii":
                 raise ValueError(f"{path}: only ascii PLY supported")
         if n_vertices == 0 or not props:
             data = np.zeros((n_vertices, max(len(props), 1)), np.float64)
         else:
-            data = np.loadtxt(f, max_rows=n_vertices)
+            data = _native_read_rows(path, header_bytes, n_vertices, len(props))
+            if data is None:
+                data = np.loadtxt(f, max_rows=n_vertices)
     data = np.atleast_2d(data)
     ix = [props.index(p) for p in ("x", "y", "z")]
     pts = data[:, ix]

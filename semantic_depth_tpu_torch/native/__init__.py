@@ -1,0 +1,2 @@
+"""Host-side C++ of the port, built with g++ at first use and bound with
+ctypes (``build.py``): the ASCII PLY writer and reader behind ``io/ply.py``."""

@@ -10,6 +10,14 @@ seconds. Nothing outside the repository's sources is compiled.
 
 Results depend on IEEE ``sqrtf`` and division, so the flags never include
 ``--use_fast_math``.
+
+Each kernel is a PyTorch dispatcher op (``torch.library.custom_op``) under
+``NAMESPACE``, defined beside its plain version in ``knn_grid.py``,
+``mad.py``, ``radius.py`` and ``exact_knn.py``: the CPU implementation is
+the plain version, the CUDA implementation checks its arguments (data
+pointers included), launches and counts the launch, and a fake
+implementation gives the output's shape and dtype. An exported program
+(``export.py``) holds the ops as calls, so it launches the same kernels.
 """
 
 from __future__ import annotations
@@ -33,6 +41,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+NAMESPACE = "sd_torch"  # the dispatcher ops' namespace: torch.ops.sd_torch.*
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -152,16 +152,21 @@ def _launch(xyz, valid, k, skip, scratch, out) -> None:
     _cuda.check(err, "knn_mean_distances_exact")
 
 
-def knn_mean_distances_exact(
-    xyz: torch.Tensor, valid: torch.Tensor, k: int, skip: bool = True
-) -> torch.Tensor:
-    """xyz (B, C, 3) float32, valid (B, C) bool -> (B, C) float32, any C.
-    CPU tensors take the plain version; CUDA tensors launch the kernels (a
-    preparation kernel, grid (G, B); the search, grid (ceil(C /
-    BLOCK_QUERIES), B); the deferred queries' kernel) or raise.
-    ``skip=False`` scans every candidate in row order (validation)."""
-    if xyz.device.type == "cpu":
-        return knn_mean_distances_exact_plain(xyz, valid, k)
+@torch.library.custom_op(f"{_cuda.NAMESPACE}::exact_knn", mutates_args=(), device_types="cpu")
+def _exact_knn_op(xyz: torch.Tensor, valid: torch.Tensor, k: int, skip: bool) -> torch.Tensor:
+    """The dispatcher op; on the CPU, the plain version (its ``valid_span``
+    reads the data: the op is opaque to an export)."""
+    return knn_mean_distances_exact_plain(xyz, valid, k)
+
+
+@_exact_knn_op.register_fake
+def _(xyz, valid, k, skip):
+    return valid.new_empty(valid.shape, dtype=torch.float32)
+
+
+@_exact_knn_op.register_kernel("cuda")
+def _(xyz, valid, k, skip):
+    """The three kernels, or raise."""
     if not 1 <= k <= KERNEL_MAX_K:
         raise ValueError(f"the CUDA kernel is built for 1 <= k <= {KERNEL_MAX_K}; got k={k}")
     if xyz.ndim != 3 or xyz.shape[-1] != 3:
@@ -178,6 +183,18 @@ def knn_mean_distances_exact(
     _launch(xyz, valid, k, skip, scratch, out)
     knn_mean_distances_exact.launches += 1
     return out
+
+
+def knn_mean_distances_exact(
+    xyz: torch.Tensor, valid: torch.Tensor, k: int, skip: bool = True
+) -> torch.Tensor:
+    """xyz (B, C, 3) float32, valid (B, C) bool -> (B, C) float32, any C,
+    through the op ``sd_torch::exact_knn``. CPU tensors take the plain
+    version; CUDA tensors launch the kernels (a preparation kernel, grid
+    (G, B); the search, grid (ceil(C / BLOCK_QUERIES), B); the deferred
+    queries' kernel; counted once in ``launches``) or raise.
+    ``skip=False`` scans every candidate in row order (validation)."""
+    return _exact_knn_op(xyz, valid, int(k), bool(skip))
 
 
 knn_mean_distances_exact.launches = 0

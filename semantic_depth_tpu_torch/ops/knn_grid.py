@@ -19,7 +19,7 @@ after +inf.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -62,14 +62,21 @@ def knn_mean_distances_grid_plain(
     return torch.where(valid, acc / acc.new_tensor(float(k)), float("inf"))
 
 
-def knn_mean_distances_grid(
-    points: torch.Tensor, valid: torch.Tensor, k: int, window: Tuple[int, int] = (5, 21)
-) -> torch.Tensor:
-    """points (B, H, W, 3) float32, valid (B, H, W) bool -> (B, H, W)
-    float32. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (one launch for the batch) or raise."""
-    if points.device.type == "cpu":
-        return knn_mean_distances_grid_plain(points, valid, k, window)
+@torch.library.custom_op(f"{_cuda.NAMESPACE}::knn_grid", mutates_args=(), device_types="cpu")
+def _knn_grid_op(points: torch.Tensor, valid: torch.Tensor, k: int,
+                 window: Sequence[int]) -> torch.Tensor:
+    """The dispatcher op; on the CPU, the plain version."""
+    return knn_mean_distances_grid_plain(points, valid, k, tuple(window))
+
+
+@_knn_grid_op.register_fake
+def _(points, valid, k, window):
+    return valid.new_empty(valid.shape, dtype=torch.float32)
+
+
+@_knn_grid_op.register_kernel("cuda")
+def _(points, valid, k, window):
+    """The kernel: one launch for the batch, or raise."""
     if (k, tuple(window)) != (KERNEL_K, KERNEL_WINDOW):
         raise ValueError(
             f"the CUDA kernel is built for k={KERNEL_K}, window={KERNEL_WINDOW}; "
@@ -91,6 +98,16 @@ def knn_mean_distances_grid(
     _cuda.check(err, "knn_mean_distances_grid")
     knn_mean_distances_grid.launches += 1
     return out
+
+
+def knn_mean_distances_grid(
+    points: torch.Tensor, valid: torch.Tensor, k: int, window: Tuple[int, int] = (5, 21)
+) -> torch.Tensor:
+    """points (B, H, W, 3) float32, valid (B, H, W) bool -> (B, H, W)
+    float32, through the op ``sd_torch::knn_grid``: CPU tensors take the
+    plain version; CUDA tensors launch the kernel (one launch for the
+    batch, counted in ``launches``) or raise."""
+    return _knn_grid_op(points, valid, k, list(window))
 
 
 knn_mean_distances_grid.launches = 0

@@ -21,6 +21,8 @@ longer rows' slices from global memory.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import _cuda
@@ -98,16 +100,24 @@ def _by_value(thresholds, rows: int):
     return t, t, rows
 
 
-def _launch(values, valid, thresholds, out) -> None:
-    """The kernel on checked tensors."""
-    r, n = values.shape
+def _op_args(thresholds, rows: int):
+    """``mad_keep_mask``'s thresholds as the op's (tensor or None, t0, t1,
+    split)."""
     if isinstance(thresholds, torch.Tensor):
+        return thresholds, 0.0, 0.0, rows
+    return (None, *_by_value(thresholds, rows))
+
+
+def _kernel(values, valid, thresholds, t0, t1, split, out) -> None:
+    """The kernel on checked values and valid: the (R,) ``thresholds``, or
+    None and the floats by value."""
+    r, n = values.shape
+    ptr = None
+    if thresholds is not None:
         _cuda.require(thresholds, "thresholds", torch.float32, (r,))
         if thresholds.device != values.device:
             raise ValueError("values and thresholds must be on one device")
-        ptr, t0, t1, split = thresholds.data_ptr(), 0.0, 0.0, r
-    else:
-        ptr, (t0, t1, split) = None, _by_value(thresholds, r)
+        ptr = thresholds.data_ptr()
     err = _cuda.library().sd_mad_keep(
         values.data_ptr(), valid.data_ptr(), ptr, t0, t1, split, out.data_ptr(), r, n,
         _cuda.stream_ptr(values),
@@ -115,16 +125,31 @@ def _launch(values, valid, thresholds, out) -> None:
     _cuda.check(err, "mad_keep_mask")
 
 
-def mad_keep_mask(values: torch.Tensor, valid: torch.Tensor, thresholds) -> torch.Tensor:
-    """values (R, N) float32, valid (R, N) bool -> (R, N) bool keep mask.
-    ``thresholds``: one float for every row, a pair (a, b) for the first and
-    the second half of the rows (the fence pair), or an (R,) float32 tensor;
-    the floats go to the kernel by value, with no copy to the card. CPU
-    tensors take the plain version; CUDA tensors launch the kernel (one
-    cluster per row) or raise."""
-    if values.device.type == "cpu":
-        rows = values.shape[0]
-        return mad_keep_mask_plain(values, valid, threshold_rows(thresholds, rows, "cpu"))
+def _launch(values, valid, thresholds, out) -> None:
+    """The kernel on checked tensors, ``thresholds`` as ``mad_keep_mask``
+    takes them (no count: the measurement tools' direct launch)."""
+    _kernel(values, valid, *_op_args(thresholds, values.shape[0]), out)
+
+
+@torch.library.custom_op(f"{_cuda.NAMESPACE}::mad_keep", mutates_args=(), device_types="cpu")
+def _mad_op(values: torch.Tensor, valid: torch.Tensor, thresholds: Optional[torch.Tensor],
+            t0: float, t1: float, split: int) -> torch.Tensor:
+    """The dispatcher op: ``thresholds`` (R,), or None and ``t0`` on the rows
+    before ``split``, ``t1`` on the rest. On the CPU, the plain version."""
+    if thresholds is None:
+        r = values.shape[0]
+        thresholds = torch.tensor([t0] * split + [t1] * (r - split), dtype=torch.float32)
+    return mad_keep_mask_plain(values, valid, thresholds)
+
+
+@_mad_op.register_fake
+def _(values, valid, thresholds, t0, t1, split):
+    return values.new_empty(values.shape, dtype=torch.bool)
+
+
+@_mad_op.register_kernel("cuda")
+def _(values, valid, thresholds, t0, t1, split):
+    """The kernel (one cluster per row), or raise."""
     if values.ndim != 2:
         raise ValueError(f"values must be (R, N), got {tuple(values.shape)}")
     r, n = values.shape
@@ -141,9 +166,20 @@ def mad_keep_mask(values: torch.Tensor, valid: torch.Tensor, thresholds) -> torc
     out = torch.empty((r, n), dtype=torch.bool, device=values.device)
     if out.numel() == 0:
         return out
-    _launch(values, valid, thresholds, out)
+    _kernel(values, valid, thresholds, t0, t1, split, out)
     mad_keep_mask.launches += 1
     return out
+
+
+def mad_keep_mask(values: torch.Tensor, valid: torch.Tensor, thresholds) -> torch.Tensor:
+    """values (R, N) float32, valid (R, N) bool -> (R, N) bool keep mask,
+    through the op ``sd_torch::mad_keep``. ``thresholds``: one float for
+    every row, a pair (a, b) for the first and the second half of the rows
+    (the fence pair), or an (R,) float32 tensor; the floats go to the kernel
+    by value, with no copy to the card. CPU tensors take the plain version;
+    CUDA tensors launch the kernel (one cluster per row, counted in
+    ``launches``) or raise."""
+    return _mad_op(values, valid, *_op_args(thresholds, values.shape[0]))
 
 
 mad_keep_mask.launches = 0

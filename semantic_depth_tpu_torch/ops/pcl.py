@@ -422,7 +422,8 @@ def plane_edge_width_cloud(
     qx = q[..., 0]
     left_q = _take_rows(q, torch.where(sel, qx, float("inf")).argmin(-1))
     right_q = _take_rows(q, torch.where(sel, qx, float("-inf")).argmax(-1))
-    f = q.new_tensor(focal)  # a true division on the card too
+    # a tensor divisor: a true division on the card too
+    f = torch.as_tensor(focal, dtype=torch.float32, device=q.device)
     fp_l = -left_q[..., 2] / f
     fp_r = -right_q[..., 2] / f
     left_pt = torch.cat([left_q[..., :1] + (-0.5 * fp_l)[..., None], left_q[..., 1:]], -1)

@@ -103,18 +103,23 @@ def _launch(xyz, valid, weights, radius, skip, scratch, out) -> None:
     _cuda.check(err, "radius_counts")
 
 
-def radius_counts(
-    xyz: torch.Tensor, valid: torch.Tensor, weights: torch.Tensor, radius: float,
-    skip: bool = True,
-) -> torch.Tensor:
-    """xyz (B, C, 3) float32, valid (B, C) bool, weights (B, C) float32 ->
-    (B, C) float32 weighted counts. CPU tensors take the plain version; CUDA
-    tensors launch the kernels (one preparation block per frame, then grid
-    (C / BLOCK_QUERIES, B, min(MAX_SPLITS, C / TILE)); one call per batch)
-    or raise.
-    ``skip=False`` turns the z-range skip off."""
-    if xyz.device.type == "cpu":
-        return radius_counts_plain(xyz, valid, weights, radius)
+@torch.library.custom_op(f"{_cuda.NAMESPACE}::radius_counts", mutates_args=(),
+                         device_types="cpu")
+def _radius_op(xyz: torch.Tensor, valid: torch.Tensor, weights: torch.Tensor, radius: float,
+               skip: bool) -> torch.Tensor:
+    """The dispatcher op; on the CPU, the plain version (its ``valid_span``
+    reads the data: the op is opaque to an export)."""
+    return radius_counts_plain(xyz, valid, weights, radius)
+
+
+@_radius_op.register_fake
+def _(xyz, valid, weights, radius, skip):
+    return valid.new_empty(valid.shape, dtype=torch.float32)
+
+
+@_radius_op.register_kernel("cuda")
+def _(xyz, valid, weights, radius, skip):
+    """The two kernels, or raise."""
     if xyz.ndim != 3 or xyz.shape[-1] != 3:
         raise ValueError(f"xyz must be (B, C, 3), got {tuple(xyz.shape)}")
     b, c, _ = xyz.shape
@@ -132,6 +137,19 @@ def radius_counts(
     _launch(xyz, valid, weights, radius, skip, scratch, out)
     radius_counts.launches += 1
     return out
+
+
+def radius_counts(
+    xyz: torch.Tensor, valid: torch.Tensor, weights: torch.Tensor, radius: float,
+    skip: bool = True,
+) -> torch.Tensor:
+    """xyz (B, C, 3) float32, valid (B, C) bool, weights (B, C) float32 ->
+    (B, C) float32 weighted counts, through the op ``sd_torch::radius_counts``.
+    CPU tensors take the plain version; CUDA tensors launch the kernels (one
+    preparation block per frame, then grid (C / BLOCK_QUERIES, B,
+    min(MAX_SPLITS, C / TILE)); one call per batch, counted in ``launches``)
+    or raise. ``skip=False`` turns the z-range skip off."""
+    return _radius_op(xyz, valid, weights, float(radius), bool(skip))
 
 
 radius_counts.launches = 0

@@ -170,8 +170,10 @@ def _road_width(cfg, road_cloud, road_plane, cam):
 
 def _scaled_camera(cfg: PipelineConfig, focal):
     """Intrinsics at the working resolution: cx and the focal scale with
-    width, cy with height (exactly 1.0 at 256x512). Returns (camera, s_w);
-    the caller scales the disparity multiplier by s_w."""
+    width, cy with height (exactly 1.0 at 256x512). ``focal`` is a float or
+    a 0-d float32 tensor (then the camera's focal is one too, scaled in
+    float32 as JAX scales its traced focal). Returns (camera, s_w); the
+    caller scales the disparity multiplier by s_w."""
     s_w = cfg.input_width / float(_REF_W)
     s_h = cfg.input_height / float(_REF_H)
     if abs(s_w - s_h) > 1e-9:
@@ -215,9 +217,11 @@ def _no_fences(b: int, n: int, device):
     return torch.full((b,), nan, device=device), pt, pt, plane, plane, none, none
 
 
-def _f32(x) -> float:
-    """A scalar rounded to float32, as the JAX pipeline's traced scalars are."""
-    return float(torch.tensor(float(x), dtype=torch.float32))
+def _scalar(x) -> torch.Tensor:
+    """A per-frame scalar as the frame program takes it: a 0-d float32 CPU
+    tensor, as the JAX pipeline's traced float32 scalars. Elementwise ops
+    take a CPU 0-d tensor beside CUDA tensors with no copy to the card."""
+    return torch.tensor(float(x), dtype=torch.float32)
 
 
 class SemanticDepthPipeline:
@@ -247,7 +251,9 @@ class SemanticDepthPipeline:
 
     def _segment(self, small: torch.Tensor):
         """FCN-8s forward + 0.5-threshold (road, fence) masks (semantic_depth.py:544-556)."""
-        probs = torch.softmax(self.fcn(small), dim=-1)
+        return self._masks(torch.softmax(self.fcn(small), dim=-1))
+
+    def _masks(self, probs: torch.Tensor):
         thr = self.config.segmenter.threshold
         return probs[..., 0] > thr, probs[..., 1] > thr
 
@@ -300,7 +306,39 @@ class SemanticDepthPipeline:
             fence_left_valid=fl_valid, fence_right_valid=fr_valid,
         )
 
+    # --- public per-frame stages ---------------------------------------------
+    @torch.inference_mode()
+    def segment(self, frame_small):
+        """FCN-8s forward + 0.5-threshold masks of one resized frame
+        (semantic_depth.py:544-556). frame_small (h, w, 3) float32 0..255 ->
+        (road (h, w) bool, fence (h, w) bool, probs (h, w, classes))."""
+        small = torch.as_tensor(frame_small).to(self.device).float()
+        probs = torch.softmax(self.fcn(small[None]), dim=-1)[0]
+        return self._masks(probs) + (probs,)
+
+    @torch.inference_mode()
+    def disparity(self, frame_small, disparity_mult) -> torch.Tensor:
+        """Monodepth flip-batch forward + flip-average postprocess + scaling
+        of one resized frame (semantic_depth.py:667-678, 144-145): (h, w, 3)
+        -> (h, w) float32. ``disparity_mult`` is applied as given (no width
+        factor)."""
+        small = torch.as_tensor(frame_small).to(self.device).float()
+        return self._batch_disparity(small[None], _scalar(disparity_mult))[0]
+
     # --- entry points ------------------------------------------------------
+    def _process_batch_impl(
+        self, frames: torch.Tensor, focal: torch.Tensor, disparity_mult: torch.Tensor
+    ) -> FrameOutputs:
+        """The frame program on a (B, H0, W0, 3) batch on the pipeline's
+        device, with ``focal`` and ``disparity_mult`` 0-d float32 tensors
+        (the ORIGINAL-width multiplier; the width factor is applied here).
+        ``process_batch`` runs it, and ``export.py`` traces it, so the live
+        and the frozen program are one code path."""
+        cam, s_w = _scaled_camera(self.config, focal)
+        small, road_masks, fence_masks = self._batch_segment(frames)
+        disps = self._batch_disparity(small, disparity_mult * s_w)
+        return self._batch_geometry(small, road_masks, fence_masks, disps, cam)
+
     @torch.inference_mode()
     def process_batch(
         self, frames, focal: Optional[float] = None, disparity_mult: Optional[float] = None
@@ -309,13 +347,10 @@ class SemanticDepthPipeline:
         the caller's channel order -> FrameOutputs with a leading batch axis.
         focal overrides the config camera's; disparity_mult defaults to the
         ORIGINAL frame width (semantic_depth.py:109)."""
-        cfg = self.config
         frames = torch.as_tensor(frames).to(self.device)
-        focal, disparity_mult = resolve_frame_scalars(cfg, frames.shape[2], focal, disparity_mult)
-        cam, s_w = _scaled_camera(cfg, _f32(focal))
-        small, road_masks, fence_masks = self._batch_segment(frames)
-        disps = self._batch_disparity(small, _f32(_f32(disparity_mult) * s_w))
-        return self._batch_geometry(small, road_masks, fence_masks, disps, cam)
+        focal, disparity_mult = resolve_frame_scalars(
+            self.config, frames.shape[2], focal, disparity_mult)
+        return self._process_batch_impl(frames, _scalar(focal), _scalar(disparity_mult))
 
     def process_frame(
         self, frame, focal: Optional[float] = None, disparity_mult: Optional[float] = None
@@ -351,8 +386,8 @@ class SemanticDepthPipeline:
         if getattr(self, "_stages_warm", None) != warm_key:
             self._stages_warm = warm_key  # set first: the warm-up call recurses
             self.process_frame_staged(frame, focal, disparity_mult)
-        cam, s_w = _scaled_camera(cfg, _f32(focal))
-        mult = _f32(_f32(disparity_mult) * s_w)
+        cam, s_w = _scaled_camera(cfg, _scalar(focal))
+        mult = _scalar(disparity_mult) * s_w
         times = {}
 
         def timed(key, stage, *args):

@@ -323,7 +323,7 @@ def test_native_s2d_cli_matches_jax(tmp_path, cli_inputs, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--use_frozen", "blob.shlo"], "frozen serving is not ported yet"),
+    (["--use_frozen", "blob.shlo"], "no frozen program at blob.shlo"),
     (["--mesh", "sp"], "multi-device serving is not ported yet"),
 ])
 def test_queued_serving_flags_exit(tmp_path, cli_inputs, extra, match):

@@ -560,3 +560,68 @@ def test_monodepth_train_step_on_the_card_matches_the_cpu(cuda):
     model = Monodepth(width_mult=0.0625, generator=torch.Generator().manual_seed(0))
     _card_against_cpu_step(lambda m, d: MonodepthTrainer(cfg, model=m, device=d), model,
                            (left, np.roll(left, -4, axis=2)), cfg.learning_rate, cuda)
+
+
+def test_ops_on_the_card_bit_equal_to_the_direct_launches(cuda):
+    """Each dispatcher op (``torch.ops.sd_torch.*``) launches its kernel,
+    counts the launch, and gives the bits of the direct launch."""
+    from semantic_depth_tpu_torch.ops import _cuda
+
+    rng = np.random.default_rng(11)
+    pts = torch.from_numpy((rng.normal(size=(2, 64, 128, 3)) * 3).astype(np.float32)).to(cuda)
+    grid_ok = torch.from_numpy(rng.random((2, 64, 128)) < 0.5).to(cuda)
+    vals = torch.from_numpy(rng.normal(size=(4, 4096)).astype(np.float32)).to(cuda)
+    rows_ok = torch.from_numpy(rng.random((4, 4096)) < 0.7).to(cuda)
+    xyz = torch.from_numpy((rng.normal(size=(2, 2048, 3)) * 2).astype(np.float32)).to(cuda)
+    ok = torch.from_numpy(rng.random((2, 2048)) < 0.6).to(cuda)
+    w = ok.float()
+    before = [fn.launches for fn in _COUNTERS]
+
+    direct = torch.empty((2, 64, 128), device=cuda)
+    _cuda.check(_cuda.library().sd_knn_grid(
+        pts.data_ptr(), grid_ok.data_ptr(), direct.data_ptr(), 2, 64, 128, 10, 5, 21,
+        _cuda.stream_ptr(pts)), "knn_grid")
+    got = torch.ops.sd_torch.knn_grid(pts, grid_ok, 10, [5, 21])
+    assert torch.equal(got.nan_to_num(), direct.nan_to_num())
+
+    direct = torch.empty((4, 4096), dtype=torch.bool, device=cuda)
+    mad._launch(vals, rows_ok, (2.0, 3.0), direct)
+    assert torch.equal(torch.ops.sd_torch.mad_keep(vals, rows_ok, None, 2.0, 3.0, 2), direct)
+
+    direct = torch.empty((2, 2048), device=cuda)
+    radius._launch(xyz, ok, w, 0.5, True, torch.empty(radius.scratch_words(2, 2048),
+                                                      device=cuda), direct)
+    assert torch.equal(torch.ops.sd_torch.radius_counts(xyz, ok, w, 0.5, True), direct)
+
+    direct = torch.empty((2, 2048), device=cuda)
+    exact_knn._launch(xyz, ok, 10, True, torch.empty(exact_knn.scratch_words(2, 2048, 10),
+                                                     device=cuda), direct)
+    assert torch.equal(torch.ops.sd_torch.exact_knn(xyz, ok, 10, True), direct)
+    assert [fn.launches - b for fn, b in zip(_COUNTERS, before)] == [1, 1, 1, 1]
+
+
+def test_frozen_program_on_the_card_equals_the_live_pipeline(cuda, tmp_path):
+    """A batched program exported on the card serves the live outputs bit
+    for bit (deterministic cuDNN on both sides) and launches the kernels
+    from inside the program."""
+    from semantic_depth_tpu_torch import export
+    from semantic_depth_tpu_torch.cli.common import build_pipeline
+
+    cfg = config.munich_pipeline_config(input_height=128, input_width=256)
+    pipe = build_pipeline(cfg, "random", "random", tiny=True, device=cuda)
+    frames = torch.from_numpy(scene_pool(2, 192, 384, seed=4)[0]).to(cuda)
+    path = export.export_pipeline(pipe, str(tmp_path / "p.pt2"), (2, 192, 384, 3),
+                                  batched=True, scalars_only=False)
+    call = export.load_pipeline(path)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True):
+        want = pipe.process_batch(frames)
+        before = [fn.launches for fn in _COUNTERS]
+        got = call(frames, cfg.camera.focal, 384.0)
+        torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(_COUNTERS, before)] == [1, 4, 1, 0]
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        pairs = ([(a.xyz, b.xyz), (a.valid, b.valid)] if f.name == "road_cloud" else [(a, b)])
+        for x, y in pairs:
+            assert x.is_cuda and torch.equal(x.isnan(), y.isnan()), f.name
+            assert torch.equal(x.nan_to_num(), y.nan_to_num()), f.name

@@ -53,7 +53,11 @@ def test_importing_the_port_loads_no_jax_package_module():
         "semantic_depth_tpu_torch.train.data, semantic_depth_tpu_torch.train.stereo_data, "
         "semantic_depth_tpu_torch.train.trainer, semantic_depth_tpu_torch.train.monodepth_trainer, "
         "semantic_depth_tpu_torch.cli.fcn, semantic_depth_tpu_torch.cli.monodepth_train, "
-        "semantic_depth_tpu_torch.utils.make_mockup; "
+        "semantic_depth_tpu_torch.utils.make_mockup, semantic_depth_tpu_torch.export, "
+        "semantic_depth_tpu_torch.cli.export_pipeline, semantic_depth_tpu_torch.native.build, "
+        "semantic_depth_tpu_torch.cli.monodepth_infer, semantic_depth_tpu_torch.cli.segment_video, "
+        "semantic_depth_tpu_torch.utils.video, semantic_depth_tpu_torch.utils.render_ply, "
+        "semantic_depth_tpu_torch.runtime; "
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('semantic_depth_tpu', 'flax', 'optax', 'orbax', 'msgpack', 'matplotlib'))))"
     )
