@@ -88,7 +88,22 @@ either is missing or any check fails. Phases:
    ``utils.video`` writing them as an mp4 that ``cli.segment_video`` reads
    back (8 frames), ``render_points`` of the phase-3 scene cloud equal on
    the card and the CPU, and one ``process_batch`` under ``runtime.trace``
-   whose trace holds its ``annotate`` span and kernel events.
+   whose trace holds its ``annotate`` span and kernel events;
+11. multi-device serving (``parallel/``) with two ranks sharing the card
+   (``parallel.launch.run_ranks``, gloo), full width, seeded weights, the 8
+   scene frames, deterministic cuDNN and TF32 off in every rank: (a) dp=2,
+   bfloat16, batch 8; (b) pp=2, bfloat16, microbatch 4; (d) dp=2 sharded
+   frozen programs (bfloat16 at export batch 4, float32 exact mode at
+   export batch 1): each rank's shard bit-equal to its own single-process
+   ``process_batch`` on every FrameOutputs field, the gathered outputs the
+   same on both ranks; (c) sp=2 float32 ``process_frame`` within the JAX sp
+   test's tolerances (disparity 1e-5, dist_rw 1e-4, nan pattern equal),
+   and sp=2 on the native bfloat16 network (largest disparity difference
+   and mask agreement printed); K1-K4 launches counted on each rank against
+   each case's expected counts; frames/s (ms per frame for sp) against the
+   single process, and the collectives' bytes and ms; which collectives
+   gloo takes on CUDA tensors (information); (e) one rank over NCCL (world
+   size 1, dp=1): outputs equal ``process_batch``, the collectives exact.
 
 The second-to-last lines are the card's name and power limit and one JSON
 object with the kernels' numbers (``frozen_launches``: phase 10's programs');
@@ -1606,6 +1621,321 @@ def phase_native_ply_and_tools(dev, scene_cloud, frames):
     return res
 
 
+# --- phase 11: multi-device serving, two ranks sharing the one card -----------
+_DETERMINISTIC_CUDNN = dict(enabled=True, benchmark=False, deterministic=True, allow_tf32=False)
+# per-rank launches of each case's sharded call
+_PP_STAGE_LAUNCHES = ({"knn_grid": 0, "mad": 0, "radius": 0, "exact_knn": 0},
+                      {"knn_grid": 2, "mad": 8, "radius": 2, "exact_knn": 0})
+
+
+def _shard_mismatch(out, ref, lo, hi):
+    """Fields of frames lo:hi of the gathered ``out`` that differ from ``ref``."""
+    return _outputs_mismatch(out.map(lambda x: x[lo:hi]), ref)
+
+
+def _timed(fn, n):
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), times
+
+
+def _same_on_every_rank(x: torch.Tensor) -> bool:
+    from semantic_depth_tpu_torch.parallel import comm
+
+    got = comm.all_gather_dim(x.reshape(1, -1), 0, None)
+    return bool((got == got[:1]).all())
+
+
+def _single_alone(fn, n):
+    """``fn`` timed on rank 0 while the other ranks wait (the card to
+    itself); every rank gets rank 0's median."""
+    import torch.distributed as dist
+
+    from semantic_depth_tpu_torch.parallel import comm
+
+    med = torch.zeros(1, dtype=torch.float64)
+    if dist.get_rank() == 0:
+        med[0] = _timed(fn, n)[0]
+    dist.barrier()
+    return float(comm.broadcast(med if dist.get_rank() == 0 else None, 0, None, "cpu")[0])
+
+
+def _rank_device():
+    """This rank's card (``init_distributed`` set it current)."""
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _multi_device_rank(frames_np, work, n_timed):
+    """Phase 11 on one of two ranks sharing the card (gloo): (a) dp, (b) pp,
+    (c) sp in float32 and on the native network, (d) sharded frozen
+    programs, each against this process's single-process port; then which
+    collectives gloo takes on CUDA tensors (information)."""
+    import torch.distributed as dist
+
+    from semantic_depth_tpu_torch import export
+    from semantic_depth_tpu_torch.cli.common import build_pipeline
+    from semantic_depth_tpu_torch.export import load_pipeline_sharded
+    from semantic_depth_tpu_torch.parallel import (PipelinedPipeline, ShardedPipeline, comm,
+                                                   make_mesh, make_pp_mesh, make_spatial_mesh)
+    from semantic_depth_tpu_torch.runtime import set_full_fp32
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = _rank_device()
+    set_full_fp32()
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    counters = kernel_counters()
+    frames = torch.from_numpy(frames_np).to(dev)
+    n, per = frames.shape[0], frames.shape[0] // world
+    lo, hi = rank * per, (rank + 1) * per
+    res = dict(rank=rank, backend=str(dist.get_backend()), world=world)
+
+    def run(fn):
+        """fn's output and launches, counts set to 0 just before."""
+        torch.cuda.synchronize()
+        reset_counts(counters)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, read_counts(counters)
+
+    def traffic_of(fn):
+        comm.traffic.reset()
+        fn()
+        torch.cuda.synchronize()
+        return comm.traffic.as_dict()
+
+    # (a) dp=2, bfloat16, grid mode, batch 8 (4 a rank)
+    pipe = full_pipeline(dev, "bfloat16", "grid")
+    scalars = measurable(pipe, frames)[0]
+    res["same_depth"] = _same_on_every_rank(torch.tensor([pipe.config.depth]))
+    dp = ShardedPipeline(pipe, make_mesh(world, dp=world, tp=1))
+    dp.process_batch(frames, *scalars)  # warm-up
+    out, launches = run(lambda: dp.process_batch(frames, *scalars))
+    ref = pipe.process_batch(frames[lo:hi], *scalars)
+    res["dp"] = dict(launches=launches, mismatch=_shard_mismatch(out, ref, lo, hi),
+                     rw_found=int(out.rw_found.sum()),
+                     digest_same=_same_on_every_rank(out.dist_rw.nan_to_num(-1.0)))
+    res["dp"]["traffic"] = traffic_of(lambda: dp.process_batch(frames, *scalars))
+    res["dp"]["batch_s"] = _timed(lambda: dp.process_batch(frames, *scalars), n_timed)[0]
+    res["dp"]["single_batch_s"] = _single_alone(lambda: pipe.process_batch(frames, *scalars),
+                                                n_timed)
+
+    # (b) pp=2 (dp=1), bfloat16, batch 8, microbatch 4
+    pp = PipelinedPipeline(pipe, make_pp_mesh(world, dp=1, pp=world))
+    pp.process_stream(frames, 4, *scalars)
+    out, launches = run(lambda: pp.process_stream(frames, 4, *scalars))
+    bad = []
+    for i in range(n // 4):
+        ref = pipe.process_batch(frames[4 * i:4 * i + 4], *scalars)
+        bad += _shard_mismatch(out, ref, 4 * i, 4 * i + 4)
+    res["pp"] = dict(launches=launches, mismatch=sorted(set(bad)),
+                     rw_found=int(out.rw_found.sum()), expected=_PP_STAGE_LAUNCHES[rank])
+    res["pp"]["traffic"] = traffic_of(lambda: pp.process_stream(frames, 4, *scalars))
+    res["pp"]["batch_s"] = _timed(lambda: pp.process_stream(frames, 4, *scalars), n_timed)[0]
+    del dp, pp, pipe, out, ref
+    torch.cuda.empty_cache()
+
+    # (c) sp=2: float32, one frame; the native input_s2d network in bfloat16
+    pipe = full_pipeline(dev, "float32", "grid")
+    scalars = measurable(pipe, frames[:1])[0]
+    sp = ShardedPipeline(pipe, make_spatial_mesh(world))
+    sp.process_frame(frames[0], *scalars)
+    got, launches = run(lambda: sp.process_frame(frames[0], *scalars))
+    want = pipe.process_frame(frames[0], *scalars)
+    a, b = got.dist_rw, want.dist_rw
+    res["sp_f32"] = dict(
+        launches=launches,
+        disparity_ok=bool(torch.allclose(got.disparity, want.disparity, rtol=1e-5, atol=1e-5)),
+        disparity_max_diff=float((got.disparity - want.disparity).abs().max()),
+        nan_same=bool(torch.equal(a.isnan(), b.isnan())),
+        dist_rw_ok=bool(torch.allclose(a.nan_to_num(), b.nan_to_num(), rtol=1e-4)),
+        dist_rw=[float(a), float(b)], rw_found=bool(got.rw_found),
+        mask_agreement=float((got.road_mask == want.road_mask).float().mean()))
+    res["sp_f32"]["traffic"] = traffic_of(lambda: sp.process_frame(frames[0], *scalars))
+    res["sp_f32"]["frame_s"] = _timed(lambda: sp.process_frame(frames[0], *scalars),
+                                      n_timed)[0]
+    res["sp_f32"]["single_frame_s"] = _single_alone(
+        lambda: pipe.process_frame(frames[0], *scalars), n_timed)
+    del sp, pipe
+    torch.cuda.empty_cache()
+    pipe = build_pipeline(native_config(compute_dtype="bfloat16"), "random", "random",
+                          native_s2d=True, device=dev)
+    sp = ShardedPipeline(pipe, make_spatial_mesh(world))
+    sp.process_frame(frames[0])
+    got, launches = run(lambda: sp.process_frame(frames[0]))
+    want = pipe.process_frame(frames[0])
+    res["sp_native_bf16"] = dict(
+        launches=launches,
+        disparity_max_diff=float((got.disparity - want.disparity).abs().max()),
+        disparity_max=float(want.disparity.abs().max()),
+        mask_agreement=float((got.road_mask == want.road_mask).float().mean()))
+    res["sp_native_bf16"]["traffic"] = traffic_of(lambda: sp.process_frame(frames[0]))
+    res["sp_native_bf16"]["frame_s"] = _timed(lambda: sp.process_frame(frames[0]), n_timed)[0]
+    res["sp_native_bf16"]["single_frame_s"] = _single_alone(
+        lambda: pipe.process_frame(frames[0]), n_timed)
+    del sp, pipe
+    torch.cuda.empty_cache()
+
+    # (d) sharded frozen dp=2: a bfloat16 batch-4 program at global batch 8, and a
+    # float32 exact-mode batch-1 program at global batch 2 (K4 on every rank)
+    mesh = make_mesh(world, dp=world, tp=1)
+    for key, dtype_name, mode, batch in (("frozen_bf16", "bfloat16", "grid", per),
+                                         ("frozen_exact_f32", "float32", "exact", 1)):
+        pipe = full_pipeline(dev, dtype_name, mode)
+        sub = frames[:batch * world]
+        scalars = measurable(pipe, sub)[0]
+        path = os.path.join(work, f"{key}.pt2")
+        if rank == 0:
+            export.export_pipeline(pipe, path, (batch,) + tuple(frames.shape[1:]),
+                                   batched=True, scalars_only=False)
+        dist.barrier()
+        t0 = time.time()
+        call = load_pipeline_sharded(path, mesh)
+        load_s = time.time() - t0
+        call(sub, *scalars)
+        out, launches = run(lambda: call(sub, *scalars))
+        ref = pipe.process_batch(sub[rank * batch:(rank + 1) * batch], *scalars)
+        r = dict(launches=launches, load_s=load_s, global_batch=call.global_batch,
+                 mismatch=_shard_mismatch(out, ref, rank * batch, (rank + 1) * batch),
+                 rw_found=int(out.rw_found.sum()),
+                 digest_same=_same_on_every_rank(out.dist_rw.nan_to_num(-1.0)))
+        r["traffic"] = traffic_of(lambda: call(sub, *scalars))
+        r["batch_s"] = _timed(lambda: call(sub, *scalars), n_timed)[0]
+        r["single_batch_s"] = _single_alone(lambda: pipe.process_batch(sub, *scalars), n_timed)
+        res[key] = r
+        del pipe, call, out, ref
+        torch.cuda.empty_cache()
+
+    # which collectives gloo takes on CUDA tensors as they are (information;
+    # comm.py stages CUDA tensors through host memory either way)
+    takes = {}
+    x = torch.arange(4.0, device=dev) + rank
+    for name, fn in (("all_gather", lambda: dist.all_gather(
+                         [torch.empty_like(x) for _ in range(world)], x)),
+                     ("broadcast", lambda: dist.broadcast(x.clone(), 0)),
+                     ("all_reduce", lambda: dist.all_reduce(x.clone()))):
+        try:
+            fn()
+            torch.cuda.synchronize()
+            takes[name] = True
+        except (RuntimeError, ValueError) as e:
+            takes[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    res["gloo_cuda_collectives"] = takes
+    return res
+
+
+def _nccl_rank(frames_np):
+    """Phase 11 (e): one rank over NCCL (world size 1): dp=1 serving and each
+    collective of comm.py on CUDA tensors, without host staging."""
+    import torch.distributed as dist
+
+    from semantic_depth_tpu_torch.parallel import ShardedPipeline, comm, make_mesh
+    from semantic_depth_tpu_torch.runtime import set_full_fp32
+
+    dev = _rank_device()
+    set_full_fp32()
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    counters = kernel_counters()
+    frames = torch.from_numpy(frames_np).to(dev)
+    pipe = full_pipeline(dev, "bfloat16", "grid")
+    dp = ShardedPipeline(pipe, make_mesh(1, dp=1, tp=1))
+    dp.process_batch(frames)
+    reset_counts(counters)
+    out = dp.process_batch(frames)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    ref = pipe.process_batch(frames)
+    x = torch.randn(2, 6, 5, device=dev)
+    x[0, 0, 0] = -0.0
+    comm.traffic.reset()
+    gathered = comm.all_gather_dim(x, 1, None)
+    halo = comm.halo_rows(x, 2, 1, None, dim=1)
+    back = comm.broadcast(x, 0, None, dev)
+    zero = torch.zeros(2, 2, 5, device=dev)
+    ok = (torch.equal(gathered, x) and torch.equal(back, x)
+          and torch.equal(halo, torch.cat([zero, x, zero[:, :1]], 1))
+          and bool(torch.signbit(back[0, 0, 0])))
+    return dict(backend=str(dist.get_backend()), launches=launches,
+                mismatch=_outputs_mismatch(out, ref), comm_ok=ok,
+                traffic=comm.traffic.as_dict())
+
+
+def phase_multi_device(frames, smi, n_timed=5):
+    """Phase 11: multi-device serving with two ranks sharing the card
+    (``parallel/launch.run_ranks``), then one rank over NCCL."""
+    from semantic_depth_tpu_torch.parallel.launch import run_ranks
+
+    log("[phase 11] multi-device serving: 2 ranks on one card (gloo), 8 x 1024x2048 frames")
+    frames_np = frames.cpu().numpy()
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as work:
+        ranks = run_ranks(_multi_device_rank, 2, frames_np, work, n_timed, timeout_s=600)
+    wall = time.time() - t0
+    for r in ranks:
+        k = r["rank"]
+        check(r["backend"] == "gloo" and r["world"] == 2, f"rank {k}: backend {r['backend']}")
+        check(r["same_depth"], f"rank {k}: both ranks measure at the same depth")
+        for key in ("dp", "frozen_bf16", "frozen_exact_f32"):
+            expect = EXACT_LAUNCHES if key == "frozen_exact_f32" else GRID_LAUNCHES
+            check(r[key]["launches"] == expect, f"rank {k} {key}: launches {r[key]['launches']}")
+            check(not r[key]["mismatch"] and r[key]["digest_same"] and r[key]["rw_found"] > 0,
+                  f"rank {k} {key}: its shard bit-equal to single-process process_batch "
+                  f"(differ: {r[key]['mismatch']}; {r[key]['rw_found']} widths found), the "
+                  "gathered outputs the same on both ranks")
+        check(r["pp"]["launches"] == r["pp"]["expected"],
+              f"rank {k} pp stage {k}: launches {r['pp']['launches']}")
+        check(not r["pp"]["mismatch"] and r["pp"]["rw_found"] > 0,
+              f"rank {k} pp: every microbatch bit-equal to process_batch "
+              f"(differ: {r['pp']['mismatch']})")
+        sp = r["sp_f32"]
+        check(sp["launches"] == GRID_LAUNCHES, f"rank {k} sp: launches {sp['launches']}")
+        check(sp["disparity_ok"] and sp["nan_same"] and sp["dist_rw_ok"] and sp["rw_found"],
+              f"rank {k} sp float32: disparity within 1e-5 (max diff "
+              f"{sp['disparity_max_diff']}), dist_rw {sp['dist_rw']} within rtol 1e-4")
+        check(sp["traffic"]["halo"]["calls"] > 0, f"rank {k} sp: halo rows exchanged")
+        nat = r["sp_native_bf16"]
+        check(nat["launches"] == GRID_LAUNCHES, f"rank {k} sp native: launches {nat['launches']}")
+        log(f"  info: rank {k} sp native bfloat16: largest disparity difference "
+            f"{nat['disparity_max_diff']} (of {nat['disparity_max']}), road mask agreement "
+            f"{nat['mask_agreement']}")
+    r0 = ranks[0]
+    log(f"  {smi}: backend gloo, world size 2, ranks sharing one card; gloo on CUDA tensors: "
+        f"{r0['gloo_cuda_collectives']}")
+    for key, label in (("dp", "dp=2"), ("pp", "pp=2"), ("frozen_bf16", "frozen dp=2 bf16"),
+                       ("frozen_exact_f32", "frozen dp=2 exact f32")):
+        r = r0[key]
+        nb = 8 if key in ("dp", "pp", "frozen_bf16") else 2
+        single = r0["dp"]["single_batch_s"] if key == "pp" else r["single_batch_s"]
+        t = r["traffic"]
+        moved = {kind: (t[kind]["bytes"], round(t[kind]["ms"], 3)) for kind in t
+                 if t[kind]["calls"]}
+        log(f"  {smi}: {label}: {nb / r['batch_s']:.2f} frames/s with two ranks on one card, "
+            f"single process {nb / single:.2f}; rank 0 collectives per batch "
+            f"(bytes, ms) {moved}")
+    for key in ("sp_f32", "sp_native_bf16"):
+        r = r0[key]
+        t = r["traffic"]
+        log(f"  {smi}: {key}: {r['frame_s'] * 1e3:.2f} ms per frame with two ranks on one "
+            f"card, process_frame alone {r['single_frame_s'] * 1e3:.2f}; halo "
+            f"{t['halo']['calls']} exchanges, {t['halo']['bytes']} bytes, "
+            f"{t['halo']['ms']:.2f} ms per frame; gathers {t['gather']['bytes']} bytes")
+
+    log("[phase 11] (e) one rank over NCCL (world size 1, dp=1)")
+    t1 = time.time()
+    (nccl,) = run_ranks(_nccl_rank, 1, frames_np[:4], timeout_s=300)
+    check(nccl["backend"] == "nccl", f"one rank on its own card: backend {nccl['backend']}")
+    check(nccl["launches"] == GRID_LAUNCHES and not nccl["mismatch"],
+          f"NCCL dp=1: launches {nccl['launches']}, outputs equal process_batch "
+          f"(differ: {nccl['mismatch']})")
+    check(nccl["comm_ok"], "NCCL: all_gather_dim, halo_rows and broadcast exact on CUDA tensors")
+    log(f"  phase 11 wall {wall:.1f} s (2 ranks), {time.time() - t1:.1f} s (NCCL rank)")
+    return dict(ranks=ranks, nccl=nccl, wall_s=wall)
+
+
 def codec_info():
     """Which image codecs import on this host (information, not a check)."""
     code = ("import importlib\n"
@@ -1674,6 +2004,7 @@ def main() -> int:
     trainers = phase_trainers(dev, counters, frames)
     frozen = phase_frozen(dev, counters, frames)
     frozen.update(phase_native_ply_and_tools(dev, scene_cloud, frames))
+    multi = phase_multi_device(frames, smi)
 
     for name, row in rows.items():
         row["launches"] = e2e["bfloat16_exact" if name == "exact_knn" else "float32"][
@@ -1684,7 +2015,7 @@ def main() -> int:
         row["frozen_launches"] = frozen["single_exact_f32" if name == "exact_knn" else
                                         "batched_bf16"]["launches"][name]
     summary = dict(card=smi, build_s=build_s, geometry=geom, end_to_end=e2e, native=native,
-                   entry_points=entry, trainers=trainers, frozen=frozen,
+                   entry_points=entry, trainers=trainers, frozen=frozen, multi_device=multi,
                    kernels=list(rows.values()), wall_s=time.time() - t_start)
     log("summary: " + json.dumps(summary))
     log(f"[done] wall {time.time() - t_start:.1f} s")

@@ -328,19 +328,29 @@ class FrozenPipeline:
     (semantic_depth.py:472-513), with the whole fused program in the
     artifact. No model code runs. The frame shape (and batch, for a batched
     export) and the device are fixed at export, like the reference's frozen
-    graph; ``self.batch`` is the program's batch (None: single-frame)."""
+    graph; ``self.batch`` is the batch it serves (None: single-frame).
 
-    def __init__(self, path: str, cfg: PipelineConfig, device: Optional[str] = None):
-        from ..export import load_pipeline, load_pipeline_meta
+    mesh: dp-shard a batched program over a mesh's 'dp' dim
+    (``export.load_pipeline_sharded``): every rank runs the program on its
+    slice of a global batch of export batch x dp (``self.batch``), on its
+    own card for a program exported on a card. Either way a program
+    exported for another device type than ``device`` is refused."""
+
+    def __init__(self, path: str, cfg: PipelineConfig, mesh=None, device: Optional[str] = None):
+        from ..export import load_pipeline, load_pipeline_meta, load_pipeline_sharded
 
         if not os.path.isfile(path):
             raise SystemExit(f"--use_frozen: no frozen program at {path}")
-        self._call = load_pipeline(path)
+        if mesh is not None:
+            self._call = load_pipeline_sharded(path, mesh)
+            self.batch = self._call.global_batch
+        else:
+            self._call = load_pipeline(path)
+            shape = self._call.frame_shape
+            self.batch = shape[0] if len(shape) == 4 else None
         if device is not None and torch.device(device).type != self._call.device.type:
             raise SystemExit(f"--use_frozen: {path} was exported for {self._call.device}; "
                              f"serve it there or export again on {device}")
-        shape = self._call.frame_shape
-        self.batch = shape[0] if len(shape) == 4 else None
         meta = load_pipeline_meta(path)
         if meta is not None:
             # depth, approach and camera are fixed inside the program: the
@@ -422,10 +432,42 @@ def cli_device(args) -> str:
     return "cpu" if args.device == "cpu" else f"cuda:{int(args.CUDA_DEVICE_NUMBER)}"
 
 
-def reject_queued_flags(args) -> None:
-    """``--mesh`` selects a serving path this port does not have yet."""
-    if args.mesh:
-        raise SystemExit("--mesh: multi-device serving is not ported yet")
+def join_mesh(args):
+    """``--mesh``: join the process group torchrun launched (one process per
+    mesh position). Returns (this rank's device, whether this call created
+    the group): its own card (``LOCAL_RANK``), or the CPU under ``--device
+    cpu``. Exits with a message naming torchrun when no group was
+    launched."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import init_distributed
+
+    created = not dist.is_initialized()
+    try:
+        return init_distributed("cpu" if args.device == "cpu" else None), created
+    except RuntimeError as e:
+        if "no process group" not in str(e):
+            raise
+        raise SystemExit(f"--mesh {args.mesh}: {e}") from None
+
+
+def is_writer() -> bool:
+    """Whether this process writes the artifacts: rank 0 of a process group,
+    or the only process."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def leave_mesh(created: bool) -> None:
+    """Every rank at the end of a ``--mesh`` run: wait for the others (rank 0
+    is still writing), and end the group if ``join_mesh`` created it."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.barrier()
+        if created:
+            dist.destroy_process_group()
 
 
 def build_pipeline(

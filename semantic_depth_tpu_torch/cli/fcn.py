@@ -172,7 +172,8 @@ def run_inference(trainer: FCNTrainer, dataset: SegmentationDataset, args, model
 def main(argv=None):
     args = build_arg_parser().parse_args(argv)
     if args.mesh:
-        raise SystemExit("--mesh: multi-device training is not ported yet")
+        raise SystemExit("--mesh: multi-device training is not ported yet (ROADMAP A6, "
+                         "sharded training: parallel/train_step.py and the trainers' mesh)")
 
     if args.mode == "train":
         if args.epochs is None:

@@ -13,6 +13,12 @@ Runs on the card (``--CUDA_DEVICE_NUMBER`` picks it) unless ``--device cpu``:
 
     python -m semantic_depth_tpu_torch.cli.semantic_depth --input_frame f.png \\
         --semantic_model fcn8s.msgpack --monodepth_checkpoint monodepth.msgpack --save_data
+
+``--mesh sp`` splits each frame's rows over the ranks torchrun launched
+(``parallel/``; rank 0 alone writes):
+
+    torchrun --nproc_per_node 2 -m semantic_depth_tpu_torch.cli.semantic_depth \\
+        --input_frame f.png ... --mesh sp
 """
 
 from __future__ import annotations
@@ -79,7 +85,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="use the input_s2d native full-resolution variants "
                         "(space-to-depth packed trunks; needs a matching weight set)")
     p.add_argument("--mesh", choices=("sp",), default=None,
-                   help="multi-device serving is not ported yet")
+                   help="split each frame's rows over the ranks torchrun launched "
+                        "(single-frame latency)")
     return p
 
 
@@ -121,7 +128,8 @@ def process_one(pipe, cfg, input_frame, output_name, args, focal=None):
         if cfg.approach == "both":
             print("Distance from fence to fence:", dist_f2f)
 
-    if args.save_data:
+    writer = common.is_writer()
+    if args.save_data and writer:
         common.save_frame_artifacts(out, cfg, output_name, frame, args.is_city)
 
     t_global = time.time() - tic_global
@@ -134,15 +142,17 @@ def process_one(pipe, cfg, input_frame, output_name, args, focal=None):
         # stage labels stay for the reference's file format
         times = {"read": t_read, "semantic": t_device, "disparity": 0.0, "to3D": 0.0,
                  "road": 0.0, "rw": 0.0, "fences": 0.0, "f2f": 0.0, "global": t_global}
-    art.write_times(output_name, times)
-    art.write_distances(output_name, dist_rw, dist_f2f)
+    if writer:
+        art.write_times(output_name, times)
+        art.write_distances(output_name, dist_rw, dist_f2f)
     return dist_rw, dist_f2f
 
 
 def _output_paths(results_root: str, input_frame: str):
     output_name = os.path.splitext(os.path.basename(input_frame))[0]
     output_directory = os.path.join(results_root, output_name)
-    os.makedirs(output_directory, exist_ok=True)
+    if common.is_writer():
+        os.makedirs(output_directory, exist_ok=True)
     return output_directory, os.path.join(output_directory, f"{output_name}_output")
 
 
@@ -150,7 +160,8 @@ def run_sweep(pipe, cfg, args, focal_lengths):
     best = {"rw": (-1, None), "f2f": (-1, None), "overall": (-1, None)}
     for f in focal_lengths:
         f_directory = os.path.join(args.results_dir, str(f))
-        os.makedirs(f_directory, exist_ok=True)
+        if common.is_writer():
+            os.makedirs(f_directory, exist_ok=True)
         all_data = []
         for fname, real_distance in sorted(MUNICH_GROUND_TRUTH.items()):
             input_frame = os.path.join(args.input_folder, fname)
@@ -161,14 +172,15 @@ def run_sweep(pipe, cfg, args, focal_lengths):
             all_data.append((real_distance, dist_rw, dist_f2f,
                              abs(real_distance - dist_rw), abs(real_distance - dist_f2f)))
         data = np.asarray(all_data)
-        art.write_sweep_data(f_directory, data, len(MUNICH_GROUND_TRUTH))
+        if common.is_writer():
+            art.write_sweep_data(f_directory, data, len(MUNICH_GROUND_TRUTH))
         mae_rw = data[:, 3].sum() / len(MUNICH_GROUND_TRUTH)
         mae_f2f = data[:, 4].sum() / len(MUNICH_GROUND_TRUTH)
         for key, mae in (("rw", mae_rw), ("f2f", mae_f2f), ("overall", mae_rw + mae_f2f)):
             if best[key][0] == -1 or mae < best[key][0]:
                 best[key] = (mae, f)
         print(f"Data saved for focal length: {f}")
-    if len(focal_lengths) > 1:
+    if len(focal_lengths) > 1 and common.is_writer():
         art.write_best_focal_lengths(
             args.results_dir, best["rw"][1], best["f2f"][1], best["overall"][1])
         print("Best focal lengths file generated!")
@@ -176,17 +188,30 @@ def run_sweep(pipe, cfg, args, focal_lengths):
 
 def main(argv=None):
     args = build_arg_parser().parse_args(argv)
-    common.reject_queued_flags(args)
     cfg = make_config(args)
     if args.use_frozen:
         if args.profile_stages:
             raise SystemExit("--profile_stages needs the live pipeline; the frozen program "
                              "is one opaque program")
-        pipe = common.FrozenPipeline(args.use_frozen, cfg, device=common.cli_device(args))
+        if args.mesh:
+            raise SystemExit("--mesh cannot serve a frozen export "
+                             "(the program is one single-device program); "
+                             "drop --use_frozen or --mesh")
+    if args.mesh and args.profile_stages:
+        raise SystemExit("--profile_stages times the single-device "
+                         "stage programs; drop it or --mesh")
+    device, own_group = (common.join_mesh(args) if args.mesh
+                         else (common.cli_device(args), False))
+    if args.use_frozen:
+        pipe = common.FrozenPipeline(args.use_frozen, cfg, device=device)
     else:
         pipe = common.build_pipeline(
             cfg, args.semantic_model, args.monodepth_checkpoint,
-            tiny=args.dev_tiny, native_s2d=args.native_s2d, device=common.cli_device(args))
+            tiny=args.dev_tiny, native_s2d=args.native_s2d, device=device)
+    if args.mesh:
+        from ..parallel import ShardedPipeline, make_spatial_mesh
+
+        pipe = ShardedPipeline(pipe, make_spatial_mesh())
     # a frozen program fixes depth, approach and camera: the artifacts and
     # annotations describe what it computes
     cfg = pipe.config
@@ -202,6 +227,7 @@ def main(argv=None):
     else:
         focals = [args.f] if args.f is not None else SWEEP_FOCALS
         run_sweep(pipe, cfg, args, focals)
+    common.leave_mesh(own_group)
 
 
 if __name__ == "__main__":

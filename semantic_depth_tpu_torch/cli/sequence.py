@@ -15,6 +15,13 @@ skipped with a warning. ``--use_frozen PATH`` serves from a program of
 
     python -m semantic_depth_tpu_torch.cli.sequence --input_folder 'frames/*.png' \\
         --semantic_model fcn8s.msgpack --monodepth_checkpoint monodepth.msgpack --batch 4
+
+``--mesh dp|sp|pp`` serves over N ranks (``parallel/``), one process per
+mesh position, launched by torchrun; every rank reads the frames, rank 0
+alone writes the artifacts:
+
+    torchrun --nproc_per_node 2 -m semantic_depth_tpu_torch.cli.sequence \\
+        --input_folder 'frames/*.png' ... --batch 8 --mesh dp
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import time
 from glob import glob
 
 import numpy as np
+import torch.distributed as dist
 
 from ..config import sequence_pipeline_config
 from ..io import artifacts as art
@@ -68,7 +76,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="use the input_s2d native full-resolution variants "
                         "(space-to-depth packed trunks; needs a matching weight set)")
     p.add_argument("--mesh", choices=("dp", "sp", "pp"), default=None,
-                   help="multi-device serving is not ported yet")
+                   help="serve over the ranks torchrun launched: dp shards the batch, sp "
+                        "the image rows, pp stages the program (2 stages; an even rank "
+                        "count); a frozen program serves with dp only")
     return p
 
 
@@ -98,27 +108,48 @@ def save_sequence_artifacts(out, cfg, output_name, original_hw, result_images_di
 
 def main(argv=None):
     args = build_arg_parser().parse_args(argv)
-    common.reject_queued_flags(args)
     cfg = sequence_pipeline_config(input_height=args.input_height, input_width=args.input_width,
                                    approach=args.approach, depth=args.depth)
     cfg = common.apply_encoder_override(cfg, args.monodepth_encoder)
+    if args.use_frozen and args.mesh and args.mesh != "dp":
+        raise SystemExit("--mesh sp/pp cannot serve a frozen export "
+                         "(the program is a per-device unit; only "
+                         "batch sharding composes with it); use --mesh dp "
+                         "over a batched export, or drop --use_frozen")
+    device, own_group = (common.join_mesh(args) if args.mesh
+                         else (common.cli_device(args), False))
+    n = dist.get_world_size() if args.mesh else 1
     if args.use_frozen:
-        pipe = common.FrozenPipeline(args.use_frozen, cfg, device=common.cli_device(args))
+        mesh = None
+        if args.mesh == "dp":
+            from ..parallel import make_mesh
+
+            mesh = make_mesh(n, dp=n, tp=1)
+        pipe = common.FrozenPipeline(args.use_frozen, cfg, mesh=mesh, device=device)
         if (pipe.batch or 1) != args.batch:
+            if mesh is not None:
+                raise SystemExit(
+                    f"--mesh dp over this frozen export serves batch {pipe.batch} "
+                    f"(= export batch x {n} devices); pass --batch {pipe.batch}")
             raise SystemExit(f"--use_frozen: the program serves batches of {pipe.batch or 1}; "
                              f"pass --batch {pipe.batch or 1}")
         cfg = pipe.config  # the program fixes depth, approach and camera
     else:
         pipe = common.build_pipeline(
             cfg, args.semantic_model, args.monodepth_checkpoint,
-            tiny=args.dev_tiny, native_s2d=args.native_s2d, device=common.cli_device(args))
+            tiny=args.dev_tiny, native_s2d=args.native_s2d, device=device)
+        if args.mesh:
+            pipe = _sharded(pipe, args, n)
+    writer = common.is_writer()
+    say = print if writer else (lambda *a, **k: None)
 
     out_root = os.path.join(args.results_dir, args.output_name)
     result_images_dir = os.path.join(out_root, "result_sequence_imgs")
     result_ply_dir = os.path.join(out_root, "result_sequence_ply")
     rendered_dir = os.path.join(out_root, "rendered_sequence")
-    for d in (result_images_dir, result_ply_dir, rendered_dir):
-        os.makedirs(d, exist_ok=True)
+    if writer:
+        for d in (result_images_dir, result_ply_dir, rendered_dir):
+            os.makedirs(d, exist_ok=True)
 
     frames = sorted(glob(args.input_folder))
     if not frames:
@@ -128,7 +159,7 @@ def main(argv=None):
         try:
             return common.imread_bgr(path)
         except Exception as e:  # a corrupt or unreadable frame: log and go on
-            print(f"WARNING: skipping unreadable frame {path}: {e}")
+            say(f"WARNING: skipping unreadable frame {path}: {e}")
             return None
 
     def drain(entry):
@@ -138,7 +169,7 @@ def main(argv=None):
             d = save_sequence_artifacts(outs.frame(i), cfg, name, hw, result_images_dir,
                                         result_ply_dir)
             if args.verbose and d is not None:
-                print("Road width", d)
+                say("Road width", d)
 
     pending = []  # (names, original sizes, fetch wait) of queued batches
 
@@ -149,13 +180,15 @@ def main(argv=None):
             return
         names, hws, imgs = zip(*items)
         imgs = list(imgs)
-        if args.use_frozen and len(imgs) < args.batch:
-            # a frozen program is fixed to --batch N: pad a ragged tail with
-            # the last frame; drain writes only ``names``, the real frames
+        if (args.use_frozen or args.mesh) and len(imgs) < args.batch:
+            # a frozen program is fixed to --batch N, and a sharded one needs
+            # a batch that divides over its ranks: pad a ragged tail with the
+            # last frame; drain writes only ``names``, the real frames
             imgs += [imgs[-1]] * (args.batch - len(imgs))
         outs = common.require_dense_outputs(pipe.process_batch(np.stack(imgs)),
                                             "the sequence artifact suite")
-        pending.append((names, hws, common.fetch(outs, _FIELDS)))
+        if writer:
+            pending.append((names, hws, common.fetch(outs, _FIELDS)))
         while len(pending) > 1:
             drain(pending.pop(0))
 
@@ -165,7 +198,7 @@ def main(argv=None):
     for path, frame in common.prefetch_decoded(frames, load):
         if frame is None:
             continue
-        print(f"\n\nPROCESSING NEW FRAME! {path}\n")
+        say(f"\n\nPROCESSING NEW FRAME! {path}\n")
         done += 1
         name = os.path.splitext(os.path.basename(path))[0]
         if items and frame.shape[:2] != items[0][2].shape[:2]:
@@ -179,8 +212,33 @@ def main(argv=None):
     for entry in pending:
         drain(entry)
     secs = time.perf_counter() - t0
-    print(f"{done} frames in {secs:.3f} s ({secs / max(done, 1):.4f} s per frame, "
-          "decode and artifacts included)")
+    say(f"{done} frames in {secs:.3f} s ({secs / max(done, 1):.4f} s per frame, "
+        "decode and artifacts included)")
+    common.leave_mesh(own_group)
+
+
+def _sharded(pipe, args, n):
+    """The live pipeline over the mesh ``--mesh`` names, with the JAX CLI's
+    checks (n ranks)."""
+    from ..parallel import (PipelinedPipeline, ShardedPipeline, make_mesh, make_pp_mesh,
+                            make_spatial_mesh)
+
+    if args.mesh == "dp":
+        if args.batch % n != 0:
+            raise SystemExit(f"--mesh dp shards the batch over {n} devices; "
+                             f"--batch {args.batch} must be a multiple of {n}")
+        return ShardedPipeline(pipe, make_mesh(n, dp=n, tp=1))
+    if args.mesh == "pp":
+        if n < 2 or n % 2 != 0:
+            raise SystemExit(f"--mesh pp stages the pipeline across chips; needs an "
+                             f"even device count >= 2, got {n}")
+        # each microbatch shards over dp = n/2 (process_batch picks the
+        # microbatch count)
+        if args.batch % (n // 2) != 0:
+            raise SystemExit(f"--mesh pp microbatches over dp={n // 2} devices x 2 "
+                             f"stages; --batch {args.batch} must be a multiple of {n // 2}")
+        return PipelinedPipeline(pipe, make_pp_mesh(n, dp=n // 2, pp=2))
+    return ShardedPipeline(pipe, make_spatial_mesh(n))
 
 
 if __name__ == "__main__":

@@ -125,7 +125,20 @@ def load_pipeline(path: str) -> Callable:
     0..255 either way) and moved to its device; a frame of another shape
     raises. ``call.frame_shape`` and ``call.device`` say what it takes."""
     _register_outputs()
-    program = torch.export.load(path)
+    return _serve(torch.export.load(path))
+
+
+def _moved(program, device: torch.device):
+    """The program with its weights and constants on ``device``
+    (``move_to_device_pass``; the program itself when it is there)."""
+    if device == _frame_input(program).device:
+        return program
+    from torch.export.passes import move_to_device_pass
+
+    return move_to_device_pass(program, device)
+
+
+def _serve(program) -> Callable:
     frame_val = _frame_input(program)
     module = program.module()
     shape = tuple(frame_val.shape)
@@ -140,6 +153,50 @@ def load_pipeline(path: str) -> Callable:
             return module(frame, _scalar(focal), _scalar(disparity_mult))
 
     call.frame_shape, call.device = shape, frame_val.device
+    return call
+
+
+def load_pipeline_sharded(path: str, mesh, axis: str = "dp") -> Callable:
+    """dp-sharded serving of a BATCHED frozen program (port of the JAX
+    ``load_pipeline_sharded``).
+
+    The program holds the frame program for its export batch B; every rank
+    of ``mesh`` loads it and runs it on its slice of a global batch of B x
+    (the size of ``axis``), and the outputs are gathered along the batch,
+    so every rank gets them all. A program exported on a card runs on this
+    rank's current card, moved there (``_moved``) when it was exported on
+    another; a CPU export runs on the CPU.
+
+    Returns call(frames, focal, disparity_mult) with ``call.global_batch``
+    set; frames must have leading dim exactly ``global_batch``.
+    """
+    from .parallel.inference import gather_outputs
+    from .parallel.mesh import axis_size, shard_batch
+
+    _register_outputs()
+    program = torch.export.load(path)
+    if _frame_input(program).device.type == "cuda":
+        program = _moved(program, torch.device("cuda", torch.cuda.current_device()))
+    single = _serve(program)
+    if len(single.frame_shape) != 4:
+        raise ValueError(
+            "sharded frozen serving needs a BATCHED export "
+            "(cli.export_pipeline --batch N); this program takes a single frame")
+    blob_b = single.frame_shape[0]
+    dp = axis_size(mesh, axis)
+    global_b = blob_b * dp
+    group = mesh.get_group(axis) if dp > 1 else None
+
+    def call(frame, focal, disparity_mult):
+        frame = torch.as_tensor(frame)
+        if frame.shape[0] != global_b:
+            raise ValueError(
+                f"sharded frozen serving takes batch {global_b} "
+                f"(= export batch {blob_b} x {axis}={dp}); got {frame.shape[0]}")
+        out = single(shard_batch(mesh, frame, axis), focal, disparity_mult)
+        return out if group is None else gather_outputs(out, group)
+
+    call.global_batch, call.device = global_b, single.device
     return call
 
 

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.s2d import depth_to_space, space_to_depth
+from . import spatial
 from .init import lecun_normal_, truncated_normal_
 
 # VGG16 conv stacks: (num convs, channels) per block; pools between blocks.
@@ -101,7 +102,10 @@ class FCN8s(nn.Module):
         return torch.where(mask, x / x.new_tensor(keep), 0.0)
 
     def forward(self, images: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, rows=None) -> torch.Tensor:
+        """``rows``: a ``parallel.spatial.RowShard`` when ``images`` holds
+        this rank's rows of the frames (the sp mesh axis); the logits come
+        back in the same rows."""
         x = images.to(self.compute_dtype)
         if self.input_s2d:
             x = space_to_depth(x)  # (B, H/2, W/2, 12)
@@ -109,21 +113,23 @@ class FCN8s(nn.Module):
         skips = {}
         for bi, names in enumerate(self.convs, start=1):
             for name in names:
-                x = F.relu(getattr(self, name)(x))
-            x = F.max_pool2d(x, 2, 2)
+                x = F.relu(spatial.conv(getattr(self, name), x, rows))
+            x = spatial.max_pool2(x, rows)
             if bi == 3:
                 skips["pool3"] = x  # H/8
             elif bi == 4:
                 skips["pool4"] = x  # H/16
-        x = F.relu(self.fc6(x))
+        x = F.relu(spatial.conv(self.fc6, x, rows))
         if train:
             x = self._dropout(x, generator)
-        x = F.relu(self.fc7(x))  # H/32
+        x = F.relu(spatial.conv(self.fc7, x, rows))  # H/32
         if train:
             x = self._dropout(x, generator)
-        fuse4 = self.upscore2(self.score_fc7(x)) + self.score_pool4(skips["pool4"])
-        fuse3 = self.upscore4(fuse4) + self.score_pool3(skips["pool3"])
-        up8 = self.upscore8(fuse3).permute(0, 2, 3, 1)
+        fuse4 = (spatial.conv_transpose(self.upscore2, spatial.conv(self.score_fc7, x, rows), rows)
+                 + spatial.conv(self.score_pool4, skips["pool4"], rows))
+        fuse3 = (spatial.conv_transpose(self.upscore4, fuse4, rows)
+                 + spatial.conv(self.score_pool3, skips["pool3"], rows))
+        up8 = spatial.conv_transpose(self.upscore8, fuse3, rows).permute(0, 2, 3, 1)
         if self.input_s2d:
             up8 = depth_to_space(up8)
         return up8.float()

@@ -34,17 +34,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.s2d import space_to_depth
+from . import spatial
 from .init import lecun_normal_
 
 _VGG_ENC = ((32, 7), (64, 5), (128, 3), (256, 3), (512, 3), (512, 3), (512, 3))
 _VGG_DEC = (512, 512, 256, 128, 64, 32, 16)  # upconv7 .. upconv1
 _RES_STAGES = ((64, 3), (128, 4), (256, 6), (512, 3))  # res2 .. res5: (width, blocks)
 _RES_DEC = (512, 256, 128, 64, 32, 16)  # upconv6 .. upconv1
-
-
-def _upsample_nn(x: torch.Tensor) -> torch.Tensor:
-    """Nearest-neighbour x2 on NCHW (pixel repeat)."""
-    return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
 
 
 class Monodepth(nn.Module):
@@ -121,64 +117,72 @@ class Monodepth(nn.Module):
     def _conv(self, name: str, cin: int, cout: int, k: int, stride: int = 1) -> None:
         self.add_module(name, nn.Conv2d(cin, cout, k, stride, (k - 1) // 2))
 
-    def _elu(self, name: str, x: torch.Tensor) -> torch.Tensor:
-        return F.elu(getattr(self, name)(x))
+    def _conv_at(self, name: str, x: torch.Tensor, rows) -> torch.Tensor:
+        return spatial.conv(getattr(self, name), x, rows)
 
-    def _disp(self, level: int, x: torch.Tensor) -> torch.Tensor:
-        return (0.3 * torch.sigmoid(getattr(self, f"disp{level}")(x))).float()
+    def _elu(self, name: str, x: torch.Tensor, rows=None) -> torch.Tensor:
+        return F.elu(self._conv_at(name, x, rows))
 
-    def _encode(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def _disp(self, level: int, x: torch.Tensor, rows=None) -> torch.Tensor:
+        return (0.3 * torch.sigmoid(self._conv_at(f"disp{level}", x, rows))).float()
+
+    def _encode(self, x: torch.Tensor, rows=None) -> List[torch.Tensor]:
         """The encoder outputs, finest first; the last one is the bottom."""
         feats = []
         if self.encoder == "vgg":
             for i in range(1, len(_VGG_ENC) + 1):
-                x = self._elu(f"enc{i}b", self._elu(f"enc{i}a", x))
+                x = self._elu(f"enc{i}b", self._elu(f"enc{i}a", x, rows), rows)
                 feats.append(x)  # conv_i at H/2^i
             return feats
-        conv1 = self._elu("enc1", x)  # H/2
-        x = F.max_pool2d(F.pad(conv1, (1, 1, 1, 1)), 3, 2)  # zero padding, H/4
+        conv1 = self._elu("enc1", x, rows)  # H/2
+        x = spatial.max_pool3_zero_padded(conv1, rows)  # H/4
         feats += [conv1, x]
         for stage, (_, blocks) in enumerate(_RES_STAGES, start=2):
             for i in range(blocks):
                 name = f"res{stage}_{i}"
-                out = self._elu(f"{name}_c2", self._elu(f"{name}_c1", x))
-                x = F.elu(getattr(self, f"{name}_c3")(out) + getattr(self, f"{name}_sc")(x))
+                out = self._elu(f"{name}_c2", self._elu(f"{name}_c1", x, rows), rows)
+                x = F.elu(self._conv_at(f"{name}_c3", out, rows)
+                          + self._conv_at(f"{name}_sc", x, rows))
             feats.append(x)  # res2 .. res5 at H/8 .. H/64
         return feats
 
-    def forward(self, images: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, images: torch.Tensor, rows=None) -> List[torch.Tensor]:
+        """``rows``: a ``parallel.spatial.RowShard`` when ``images`` holds
+        this rank's rows of the frames (the sp mesh axis); the finest
+        disparity comes back in the same rows."""
         x = images.to(self.compute_dtype)
         if self.input_s2d:
             x = space_to_depth(x)  # (B, H/2, W/2, 12)
-        feats = self._encode(x.permute(0, 3, 1, 2))
+        feats = self._encode(x.permute(0, 3, 1, 2), rows)
         skips, x = feats[:-1], feats[-1]
         disps: List[torch.Tensor] = []
         udisp = None
         for level in range(self.n_ups, 0, -1):  # level = output stride exponent
-            x = self._elu(f"upconv{level}", _upsample_nn(x))
+            x = self._elu(f"upconv{level}", spatial.upsample_nn(x, rows), rows)
             cat = [x]
             skip_idx = level - 2  # the skip feeding level L is at H/2^(L-1)
             if 0 <= skip_idx < len(skips):
                 cat.append(skips[skip_idx])
             if udisp is not None:
                 cat.append(udisp.to(x.dtype))
-            x = self._elu(f"iconv{level}", torch.cat(cat, dim=1))
+            x = self._elu(f"iconv{level}", torch.cat(cat, dim=1), rows)
             if level <= 4:
-                disp = self._disp(level, x)
+                disp = self._disp(level, x, rows)
                 disps.append(disp)
                 if level > 1:
-                    udisp = _upsample_nn(disp)
+                    udisp = spatial.upsample_nn(disp, rows)
         if self.input_s2d:
             # level 0: from the packed grid back to the original resolution
-            x = self._elu("upconv0", _upsample_nn(x))
-            x = self._elu("iconv0", torch.cat([x, _upsample_nn(disps[-1]).to(x.dtype)], dim=1))
-            disps.append(self._disp(0, x))
+            x = self._elu("upconv0", spatial.upsample_nn(x, rows), rows)
+            up = spatial.upsample_nn(disps[-1], rows).to(x.dtype)
+            x = self._elu("iconv0", torch.cat([x, up], dim=1), rows)
+            disps.append(self._disp(0, x, rows))
         disps.reverse()  # finest first
         return [d.permute(0, 2, 3, 1) for d in disps]
 
-    def disp_left(self, images: torch.Tensor) -> torch.Tensor:
+    def disp_left(self, images: torch.Tensor, rows=None) -> torch.Tensor:
         """``disp_left_est[0]``: the finest left disparity (B, H, W)."""
-        return self(images)[0][..., 0]
+        return self(images, rows)[0][..., 0]
 
 
 def flip_average_postprocess(disp: torch.Tensor) -> torch.Tensor:

@@ -60,18 +60,37 @@ class FrameOutputs:
     fence_left_valid: torch.Tensor  # (h*w,) bool over points3d.reshape(-1, 3)
     fence_right_valid: torch.Tensor  # (h*w,) bool
 
-    def frame(self, i: int) -> "FrameOutputs":
-        """The i-th frame of a batched result (tensors or numpy arrays; a
-        field left None stays None)."""
+    def map(self, fn) -> "FrameOutputs":
+        """``fn`` applied to every tensor (or array) field, the road
+        cloud's three included; a field left None stays None."""
         fields = {}
         for f in dataclasses.fields(self):
             val = getattr(self, f.name)
             if isinstance(val, pcl.MaskedCloud):
-                val = pcl.MaskedCloud(val.xyz[i], val.rgb[i], val.valid[i])
+                val = pcl.MaskedCloud(fn(val.xyz), fn(val.rgb), fn(val.valid))
             elif val is not None:
-                val = val[i]
+                val = fn(val)
             fields[f.name] = val
         return FrameOutputs(**fields)
+
+    def frame(self, i: int) -> "FrameOutputs":
+        """The i-th frame of a batched result (tensors or numpy arrays)."""
+        return self.map(lambda v: v[i])
+
+    def leaves(self) -> list:
+        """The tensors of every field in field order, the road cloud's three
+        in its place (for collectives that move them in one buffer)."""
+        out = []
+        self.map(out.append)
+        return out
+
+    @classmethod
+    def from_leaves(cls, leaves) -> "FrameOutputs":
+        """Inverse of ``leaves``."""
+        it = iter(leaves)
+        return cls(**{f.name: (pcl.MaskedCloud(next(it), next(it), next(it))
+                               if f.name == "road_cloud" else next(it))
+                      for f in dataclasses.fields(cls)})
 
 
 _REF_H, _REF_W = 256, 512  # the reference networks' working resolution
@@ -249,25 +268,29 @@ class SemanticDepthPipeline:
         small = resize_clip_u8(frames.float(), (cfg.input_height, cfg.input_width))
         return (small,) + self._segment(small)
 
-    def _segment(self, small: torch.Tensor):
-        """FCN-8s forward + 0.5-threshold (road, fence) masks (semantic_depth.py:544-556)."""
-        return self._masks(torch.softmax(self.fcn(small), dim=-1))
+    def _segment(self, small: torch.Tensor, rows=None):
+        """FCN-8s forward + 0.5-threshold (road, fence) masks (semantic_depth.py:544-556).
+        ``rows``: ``small`` holds this rank's rows (``parallel.spatial``)."""
+        return self._masks(torch.softmax(self.fcn(small, rows=rows), dim=-1))
 
     def _masks(self, probs: torch.Tensor):
         thr = self.config.segmenter.threshold
         return probs[..., 0] > thr, probs[..., 1] > thr
 
-    def _batch_disparity(self, small: torch.Tensor, disparity_mult: float) -> torch.Tensor:
+    def _batch_disparity(self, small: torch.Tensor, disparity_mult: float,
+                         rows=None) -> torch.Tensor:
         """Monodepth forward on the flip batch (semantic_depth.py:667-678);
-        ``disparity_mult`` already carries the width factor."""
+        ``disparity_mult`` already carries the width factor. ``rows``:
+        ``small`` holds this rank's rows (``parallel.spatial``); every step
+        after the network is row-local."""
         b = small.shape[0]
         norm = small.float() / small.new_tensor(255.0)  # a true division on the card too
         if self.config.monodepth.flip_average:
             flip_batch = torch.cat([norm, norm.flip(2)], dim=0)  # (2B, h, w, 3)
-            disp_all = self.mono.disp_left(flip_batch)
+            disp_all = self.mono.disp_left(flip_batch, rows)
             pairs = torch.stack([disp_all[:b], disp_all[b:]], dim=1)  # (B, 2, h, w)
             return flip_average_postprocess(pairs) * disparity_mult
-        return self.mono.disp_left(norm) * disparity_mult
+        return self.mono.disp_left(norm, rows) * disparity_mult
 
     def _batch_geometry(self, small, road_masks, fence_masks, disps, cam) -> FrameOutputs:
         """Back-projection -> masked clouds -> denoise -> rw endpoints ->

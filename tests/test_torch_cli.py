@@ -324,7 +324,7 @@ def test_native_s2d_cli_matches_jax(tmp_path, cli_inputs, monkeypatch):
 
 @pytest.mark.parametrize("extra,match", [
     (["--use_frozen", "blob.shlo"], "no frozen program at blob.shlo"),
-    (["--mesh", "sp"], "multi-device serving is not ported yet"),
+    (["--mesh", "sp"], "no process group: launch one process per mesh position with torchrun"),
 ])
 def test_queued_serving_flags_exit(tmp_path, cli_inputs, extra, match):
     args = ["--input_frame", str(cli_inputs["frames"] / "test_1.png"), *_weights(cli_inputs),
@@ -348,7 +348,8 @@ def test_clis_run_on_the_card_unless_told_cpu(tmp_path, cli_inputs):
     assert tcommon.cli_device(parser.parse_args(["--CUDA_DEVICE_NUMBER", "3"])) == "cuda:3"
     assert tcommon.cli_device(parser.parse_args(["--device", "cpu"])) == "cpu"
     # a bare --use_frozen and --use_xla keep their compatibility meaning
-    tcommon.reject_queued_flags(parser.parse_args(["--use_frozen", "--use_xla"]))
+    bare = parser.parse_args(["--use_frozen", "--use_xla"])
+    assert bare.use_frozen is None and bare.use_xla and bare.mesh is None
 
 
 def test_build_pipeline_native_checks_and_flip_average():

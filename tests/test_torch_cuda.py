@@ -625,3 +625,18 @@ def test_frozen_program_on_the_card_equals_the_live_pipeline(cuda, tmp_path):
         for x, y in pairs:
             assert x.is_cuda and torch.equal(x.isnan(), y.isnan()), f.name
             assert torch.equal(x.nan_to_num(), y.nan_to_num()), f.name
+
+
+def test_two_ranks_sharing_the_card_serve_dp_bit_equal(cuda):
+    """Two gloo ranks on the one card (``parallel.launch.run_ranks``), dp=2:
+    each rank's shard of the gathered outputs equals its single-process
+    ``process_batch`` bit for bit, and both ranks hold the same outputs."""
+    from semantic_depth_tpu_torch.parallel.launch import run_ranks
+
+    import test_torch_parallel_ranks as cases
+
+    frames = np.random.default_rng(4).integers(0, 256, (4, 256, 512, 3)).astype(np.uint8)
+    ranks = run_ranks(cases.run_dp_on_card, 2, frames, timeout_s=300)
+    assert all(r["backend"] == "gloo" for r in ranks)
+    assert all(r["shard"] == r["ref"] for r in ranks)
+    assert ranks[0]["digest"] == ranks[1]["digest"]

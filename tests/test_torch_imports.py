@@ -32,6 +32,8 @@ def test_port_sources_import_no_jax_and_no_jax_package():
                                                 "time_knn.py", "knn_variants.py")]
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + tools
     assert len(files) > 10
+    assert {"comm.py", "mesh.py", "spatial.py", "inference.py", "pp.py", "launch.py"} <= {
+        f.name for f in files if f.parent.name == "parallel"}
     bad = [f"{f.relative_to(REPO)}:{line}: {mod}"
            for f in files for line, mod in _imports(f) if _banned(mod)]
     assert not bad, bad
@@ -57,7 +59,11 @@ def test_importing_the_port_loads_no_jax_package_module():
         "semantic_depth_tpu_torch.cli.export_pipeline, semantic_depth_tpu_torch.native.build, "
         "semantic_depth_tpu_torch.cli.monodepth_infer, semantic_depth_tpu_torch.cli.segment_video, "
         "semantic_depth_tpu_torch.utils.video, semantic_depth_tpu_torch.utils.render_ply, "
-        "semantic_depth_tpu_torch.runtime; "
+        "semantic_depth_tpu_torch.runtime, semantic_depth_tpu_torch.parallel, "
+        "semantic_depth_tpu_torch.parallel.comm, semantic_depth_tpu_torch.parallel.mesh, "
+        "semantic_depth_tpu_torch.parallel.spatial, semantic_depth_tpu_torch.models.spatial, "
+        "semantic_depth_tpu_torch.parallel.inference, "
+        "semantic_depth_tpu_torch.parallel.pp, semantic_depth_tpu_torch.parallel.launch; "
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('semantic_depth_tpu', 'flax', 'optax', 'orbax', 'msgpack', 'matplotlib'))))"
     )
