@@ -103,7 +103,21 @@ either is missing or any check fails. Phases:
    each case's expected counts; frames/s (ms per frame for sp) against the
    single process, and the collectives' bytes and ms; which collectives
    gloo takes on CUDA tensors (information); (e) one rank over NCCL (world
-   size 1, dp=1): outputs equal ``process_batch``, the collectives exact.
+   size 1, dp=1): outputs equal ``process_batch``, the collectives exact;
+12. multi-device training with two ranks sharing the card (gloo), full
+   width, 256x512, batch 8, float32, deterministic cuDNN: (a) FCN-8s (fc
+   4096, keep 0.5) on meshes (dp 1, tp 2) and (2, 1), (b) monodepth-vgg at
+   dp 2, each 3 steps against the single-process trainer from the same
+   parameters and seed run on rank 0 alone (the losses within rel 1e-4, the
+   first step's gathered gradients and parameters by
+   ``probes.train_step_agreement``'s rule), the replicated parameters and
+   Adam moments bit-equal on both ranks, no port kernel launched; ms a
+   step, the reduce bytes and ms a step, peak memory a rank; (c) ``cli.fcn
+   --mode train --mesh`` under torchrun (2 processes) on a ``make_mockup``
+   tree, one epoch, its ``fcn8s.msgpack`` served by ``build_pipeline``; (d)
+   ``tools/train_bench_weights_torch.py`` at 30 steps a network: falling
+   losses, both msgpacks read back, the sets served by ``process_batch``
+   on bench scenes (K1-K3's launches; the rw MAE printed, not gated).
 
 The second-to-last lines are the card's name and power limit and one JSON
 object with the kernels' numbers (``frozen_launches``: phase 10's programs');
@@ -1935,6 +1949,253 @@ def phase_multi_device(frames, smi, n_timed=5):
     log(f"  phase 11 wall {wall:.1f} s (2 ranks), {time.time() - t1:.1f} s (NCCL rank)")
     return dict(ranks=ranks, nccl=nccl, wall_s=wall)
 
+# --- phase 12: multi-device training, two ranks sharing the one card ----------
+def _as_trainer(state, grads):
+    """Full parameters and gradients by name, as ``probes.train_step_agreement``
+    reads a trainer (``.model.named_parameters()`` with ``.grad``)."""
+    from types import SimpleNamespace
+
+    params = []
+    for name, t in state.items():  # host copies: the card's memory stays the trainer's
+        p = torch.nn.Parameter(t.detach().to("cpu", copy=True), requires_grad=False)
+        p.grad = grads[name].detach().to("cpu", copy=True)
+        params.append((name, p))
+    return SimpleNamespace(model=SimpleNamespace(named_parameters=lambda: list(params)))
+
+
+def _full_state(trainer, mesh):
+    """The trainer's full parameters and gradients (gathered over tp under a
+    mesh; every rank of the mesh must call this)."""
+    from semantic_depth_tpu_torch.parallel.train_step import gather_state_dict
+
+    named = dict(trainer.model.named_parameters())
+    grads = {k: p.grad for k, p in named.items()}
+    if mesh is not None:
+        return gather_state_dict(mesh, named), gather_state_dict(mesh, grads)
+    return named, grads
+
+
+def _replica_digests(trainer):
+    """sha256 of this rank's replicated parameters with their Adam moments,
+    and of its tp blocks with theirs."""
+    import hashlib
+
+    from semantic_depth_tpu_torch.parallel.train_step import SPLIT_DIMS
+
+    hashes = {True: hashlib.sha256(), False: hashlib.sha256()}
+    for name, p in trainer.model.named_parameters():
+        st = trainer.optimizer.state[p]
+        for t in (p, st["exp_avg"], st["exp_avg_sq"]):
+            hashes[name in SPLIT_DIMS].update(
+                t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return dict(replicated=hashes[False].hexdigest(), blocks=hashes[True].hexdigest())
+
+
+def _train_case(make, batch, mesh, n_steps, single):
+    """``n_steps`` steps of ``make(mesh)`` on ``batch``: the losses, the
+    first step's full parameters and gradients (on rank 0, as a trainer
+    view), ms of the later steps (median), the reduce traffic per later
+    step, this rank's peak device memory over the later steps and the
+    replica digests.
+    ``single``: rank 0 alone, with the card to itself, the others waiting."""
+    import torch.distributed as dist
+
+    from semantic_depth_tpu_torch.parallel import comm
+
+    rank = dist.get_rank()
+    res = {}
+    if not single or rank == 0:
+        trainer = make(mesh)
+        before = ({k: v.detach().cpu().clone() for k, v in trainer.model.named_parameters()}
+                  if mesh is None else None)
+        losses = [trainer.train_batch(*batch)["loss"]]
+        state, grads = _full_state(trainer, mesh)
+        view = _as_trainer(state, grads) if rank == 0 else None
+        del state, grads
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        comm.traffic.reset()
+        times = []
+        for _ in range(n_steps - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(trainer.train_batch(*batch)["loss"])
+            times.append(time.perf_counter() - t0)
+        t = comm.traffic.as_dict()["reduce"]
+        res = dict(losses=losses, step_ms=statistics.median(times) * 1e3, view=view,
+                   before=before, step_ms_all=[x * 1e3 for x in times],
+                   reduce_bytes_per_step=t["bytes"] / (n_steps - 1),
+                   reduce_ms_per_step=t["ms"] / (n_steps - 1),
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        if mesh is not None:
+            res["digests"] = _replica_digests(trainer)
+        del trainer
+        torch.cuda.empty_cache()
+    if single:
+        dist.barrier()
+    return res
+
+
+def _training_rank(fcn_batch, stereo, n_steps):
+    """Phase 12 (a) and (b) on one of two ranks sharing the card (gloo):
+    FCN-8s at full width on meshes (dp 1, tp 2) and (2, 1), monodepth-vgg at
+    dp 2, each against the single-process trainer from the same parameters
+    and seed, run on rank 0 with the card to itself."""
+    import torch.distributed as dist
+
+    from semantic_depth_tpu_torch.config import TrainConfig
+    from semantic_depth_tpu_torch.models import FCN8s, Monodepth
+    from semantic_depth_tpu_torch.parallel import make_mesh
+    from semantic_depth_tpu_torch.runtime import set_full_fp32
+    from semantic_depth_tpu_torch.train.monodepth_trainer import (MonodepthTrainConfig,
+                                                                  MonodepthTrainer)
+    from semantic_depth_tpu_torch.train.trainer import FCNTrainer
+    from semantic_depth_tpu_torch.utils.probes import train_step_agreement
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = _rank_device()
+    set_full_fp32()
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    counters = kernel_counters()
+    reset_counts(counters)
+    cfg = TrainConfig(batch_size=8)  # lr 1e-5, keep 0.5: the reference's
+
+    def fcn(mesh):
+        model = FCN8s(dropout_keep_prob=cfg.dropout, generator=torch.Generator().manual_seed(0))
+        return FCNTrainer(cfg, model=model, seed=3, device=dev, mesh=mesh)
+
+    mcfg = MonodepthTrainConfig()
+
+    def mono(mesh):
+        return MonodepthTrainer(mcfg, model=Monodepth(generator=torch.Generator().manual_seed(1)),
+                                device=dev, mesh=mesh)
+
+    out = dict(backend=str(dist.get_backend()), world=world)
+    for key, make, batch, meshes, lr in (
+            ("fcn", fcn, fcn_batch, ((1, 2), (2, 1)), cfg.learning_rate),
+            ("monodepth", mono, stereo, ((2, 1),), mcfg.learning_rate)):
+        single = _train_case(make, batch, None, n_steps, single=True)
+        for dp, tp in meshes:
+            got = _train_case(make, batch, make_mesh(world, dp=dp, tp=tp), n_steps, False)
+            if rank == 0:
+                got["agreement"] = train_step_agreement(single["view"], got["view"],
+                                                        single["before"], lr)
+                got["single_losses"] = single["losses"]
+                got["single_step_ms"] = single["step_ms"]
+                got["single_peak_mem_gib"] = single["peak_mem_gib"]
+            got.pop("view"), got.pop("before")
+            out[f"{key} dp={dp} tp={tp}"] = got
+        del single
+    out["launches"] = read_counts(counters)
+    return out
+
+
+def phase_multi_device_training(dev, frames, smi, n_steps=3):
+    """Phase 12: multi-device training with two ranks sharing the card
+    (``parallel.launch.run_ranks``), ``cli.fcn --mesh`` under torchrun, and
+    the bench-weight tool in short phases at full width."""
+    from semantic_depth_tpu_torch.cli.common import build_pipeline
+    from semantic_depth_tpu_torch.config import munich_pipeline_config
+    from semantic_depth_tpu_torch.models import weights
+    from semantic_depth_tpu_torch.parallel.launch import run_ranks
+    from semantic_depth_tpu_torch.utils.bench_scenes import scene_pool
+    from semantic_depth_tpu_torch.utils.make_mockup import make_mockup
+    from tools import train_bench_weights_torch as tool
+
+    log("[phase 12] multi-device training: 2 ranks on one card (gloo), full width, 256x512, "
+        "batch 8, float32")
+    t_phase = time.time()
+    imgs, labels = scene_pool(8, 256, 512, seed=5)[:2]
+    fcn_batch = (imgs.astype(np.float32), tool._onehot_labels(labels))
+    rng = np.random.default_rng(0)
+    base = rng.uniform(0, 1, (8, 256, 512, 3)).astype(np.float32)
+    for _ in range(2):
+        base[:, :, 1:-1] = (base[:, :, :-2] + base[:, :, 1:-1] + base[:, :, 2:]) / 3
+        base[:, 1:-1] = (base[:, :-2] + base[:, 1:-1] + base[:, 2:]) / 3
+    stereo = (base, np.roll(base, -4, axis=2))
+    ranks = run_ranks(_training_rank, 2, fcn_batch, stereo, n_steps, timeout_s=900)
+    wall = time.time() - t_phase
+    r0 = ranks[0]
+    check(r0["backend"] == "gloo" and r0["world"] == 2, f"training ranks: backend {r0['backend']}")
+    res = dict(wall_s=wall, cases={}, launches=[r["launches"] for r in ranks])
+    check(not any(v for r in ranks for v in r["launches"].values()),
+          f"the training ranks launch no port kernel ({res['launches']})")
+    for key in [k for k in r0 if k.startswith(("fcn ", "monodepth "))]:
+        got = r0[key]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], got["single_losses"]))
+        check(rel <= 1e-4, f"{key}: {n_steps} step losses within rel 1e-4 of the single "
+              f"process's (worst {rel:.2e}; {got['losses']} against {got['single_losses']})")
+        agree = got["agreement"]
+        check(agree["grad_rel"] < 1e-3 and agree["grad_rel_param"] < 1e-2
+              and agree["step_err_lr"] < 1e-2 and agree["moved"] > 0.99,
+              f"{key}: the first step's gathered gradients and parameters agree with the "
+              f"single process's ({agree})")
+        digests = [r[key]["digests"] for r in ranks]
+        check(digests[0]["replicated"] == digests[1]["replicated"],
+              f"{key}: replicated parameters and Adam moments bit-equal on both ranks after "
+              f"{n_steps} steps")
+        tp = int(key.split("tp=")[1])
+        check((digests[0]["blocks"] == digests[1]["blocks"]) == (tp == 1),
+              f"{key}: the tp blocks {'differ' if tp > 1 else 'agree'} between the ranks")
+        log(f"  {smi}: {key}: {got['step_ms']:.2f} ms a step with two ranks on one card "
+            f"(single process {got['single_step_ms']:.2f}); reduce "
+            f"{got['reduce_bytes_per_step']:.0f} bytes, {got['reduce_ms_per_step']:.2f} ms a step "
+            f"(rank 0); peak {got['peak_mem_gib']:.2f} / {ranks[1][key]['peak_mem_gib']:.2f} GiB "
+            f"a rank (single {got['single_peak_mem_gib']:.2f})")
+        res["cases"][key] = dict(got, peak_mem_gib_rank1=ranks[1][key]["peak_mem_gib"])
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        log("[phase 12] (c) cli.fcn --mode train --mesh under torchrun, 2 processes")
+        make_mockup(os.path.join(tmp, "data"), counts=(8, 2, 2), hw=(256, 512), seed=0)
+        name = "1-Epochs-roborace_mockup"
+        cmd = ["torch.distributed.run", "--standalone", "--nproc_per_node", "2", "-m",
+               "semantic_depth_tpu_torch.cli.fcn", "--mode", "train", "--epochs", "1",
+               "--dataset", "roborace_mockup", "--data_dir", os.path.join(tmp, "data"),
+               "--model_dir", os.path.join(tmp, "models"), "--logging_dir",
+               os.path.join(tmp, "log"), "--runs_dir", os.path.join(tmp, "runs"), "--mesh"]
+        secs, text = _run_cli("torchrun cli.fcn --mesh", cmd, repo, cwd=tmp)
+        fcn_path = os.path.join(tmp, "models", name, "fcn8s.msgpack")
+        check("backend gloo, world size 2" in text and text.count("Epoch 1/1:") == 1
+              and os.path.isfile(fcn_path)
+              and os.path.isfile(os.path.join(tmp, "models", name, "checkpoints", "step_8",
+                                              "state.pt")),
+              "cli.fcn --mesh: two gloo ranks, rank 0 alone prints, fcn8s.msgpack and the "
+              "step-8 checkpoint written")
+        pipe = build_pipeline(munich_pipeline_config(), fcn_path, "random", device=dev)
+        with torch.inference_mode():
+            out = pipe.process_batch(frames)
+        check(bool(torch.isfinite(out.overlay_small).all()) and pipe.fcn.fc6.weight.shape[0]
+              == 4096, "cli.fcn --mesh's fcn8s.msgpack (full fc6) served by build_pipeline")
+        res["cli"] = dict(process_s=secs)
+        del pipe, out
+
+        log("[phase 12] (d) tools/train_bench_weights_torch.py, 30 steps a network, "
+            "256x512, batch 8")
+        lines = []
+        t0 = time.time()
+        phases = [((256, 512), 16, 8, 30)]
+        paths = tool.ensure_bench_weights(os.path.join(tmp, "bench"), fcn_phases=phases,
+                                          mono_phases=phases, log=lines.append)
+        train_s = time.time() - t0
+        for net in ("fcn", "mono"):
+            ls = [float(x.split("loss ")[1].split()[0]) for x in lines
+                  if x.startswith(f"  {net} ph0")]
+            check(len(ls) == 2 and np.isfinite(ls).all() and ls[1] < ls[0],
+                  f"bench-weight tool, {net}: loss {ls[0]} at step 0, {ls[1]} at step 29")
+        trees = [weights.load_params(p) for p in paths]
+        check(all("params" in t for t in trees), f"both sets load through models/weights "
+              f"({[os.path.basename(p) for p in paths]})")
+        mae, finite, counts = tool.serve_rw_mae(*paths, n_frames=8, device=dev)
+        check(counts == GRID_LAUNCHES, f"the tool's sets served: launches {counts}")
+        log(f"  {smi}: bench-weight tool: 2 x 30 steps and the msgpacks in {train_s:.1f} s; "
+            f"bfloat16 process_batch rw MAE {mae} m over the finite {finite:.3f} of 8 scenes "
+            "(30 steps train nothing: not gated)")
+        res["bench_weights"] = dict(train_s=train_s, rw_mae_m=mae, finite=finite,
+                                    launches=counts, log=lines)
+    res["wall_s"] = time.time() - t_phase
+    log(f"  phase 12 wall {res['wall_s']:.1f} s ({wall:.1f} s the two training ranks)")
+    return res
+
 
 def codec_info():
     """Which image codecs import on this host (information, not a check)."""
@@ -2005,6 +2266,7 @@ def main() -> int:
     frozen = phase_frozen(dev, counters, frames)
     frozen.update(phase_native_ply_and_tools(dev, scene_cloud, frames))
     multi = phase_multi_device(frames, smi)
+    training = phase_multi_device_training(dev, frames, smi)
 
     for name, row in rows.items():
         row["launches"] = e2e["bfloat16_exact" if name == "exact_knn" else "float32"][
@@ -2016,7 +2278,8 @@ def main() -> int:
                                         "batched_bf16"]["launches"][name]
     summary = dict(card=smi, build_s=build_s, geometry=geom, end_to_end=e2e, native=native,
                    entry_points=entry, trainers=trainers, frozen=frozen, multi_device=multi,
-                   kernels=list(rows.values()), wall_s=time.time() - t_start)
+                   multi_device_training=training, kernels=list(rows.values()),
+                   wall_s=time.time() - t_start)
     log("summary: " + json.dumps(summary))
     log(f"[done] wall {time.time() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "frozen_launches",

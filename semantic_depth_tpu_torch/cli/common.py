@@ -448,7 +448,8 @@ def join_mesh(args):
     except RuntimeError as e:
         if "no process group" not in str(e):
             raise
-        raise SystemExit(f"--mesh {args.mesh}: {e}") from None
+        flag = "--mesh" if args.mesh is True else f"--mesh {args.mesh}"
+        raise SystemExit(f"{flag}: {e}") from None
 
 
 def is_writer() -> bool:

@@ -15,6 +15,15 @@ Runs on the card (``--CUDA_DEVICE_NUMBER`` picks it) unless ``--device cpu``:
 
     python -m semantic_depth_tpu_torch.cli.fcn --mode train --epochs 100 \\
         --dataset roborace750 --data_dir data
+
+``--mesh`` trains data/tensor-parallel (``parallel/train_step.py``) over the
+ranks torchrun launched, one process per mesh position, on the default
+``make_mesh()`` (tp=2 when the rank count is even): every rank reads the
+same seeded batches and takes its slice, and rank 0 alone prints and writes
+the logs, the overlays, ``fcn8s.msgpack`` and the checkpoint:
+
+    torchrun --nproc_per_node 2 -m semantic_depth_tpu_torch.cli.fcn --mesh \\
+        --mode train --epochs 100 --batch_size 8 --dataset roborace750 --data_dir data
 """
 
 from __future__ import annotations
@@ -62,7 +71,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="model name for test mode ('<epochs>-Epochs-<dataset>'); "
                         "read interactively if omitted (reference fcn.py:666-668)")
     p.add_argument("--mesh", action="store_true",
-                   help="multi-device training is not ported yet")
+                   help="train data/tensor-parallel over the ranks torchrun launched")
     p.add_argument("--init_from", type=str, default=None,
                    help="warm-start training from a .msgpack weight file (or a directory "
                         "holding fcn8s.msgpack)")
@@ -103,7 +112,7 @@ def load_weights(trainer: FCNTrainer, path: str) -> None:
         raise SystemExit(str(e))
 
 
-def make_trainer(args) -> FCNTrainer:
+def make_trainer(args, device=None, mesh=None) -> FCNTrainer:
     cfg = TrainConfig(
         learning_rate=args.learning_rate,
         dropout=args.dropout,
@@ -117,20 +126,23 @@ def make_trainer(args) -> FCNTrainer:
         model = FCN8s(num_classes=cfg.num_classes, dropout_keep_prob=cfg.dropout,
                       width_mult=0.125, fc_channels=32,
                       generator=torch.Generator().manual_seed(0))
-    trainer = FCNTrainer(cfg, model=model, device=common.cli_device(args))
+    trainer = FCNTrainer(cfg, model=model, device=device or common.cli_device(args), mesh=mesh)
     if args.init_from:
         load_weights(trainer, args.init_from)
     return trainer
 
 
 def run_inference(trainer: FCNTrainer, dataset: SegmentationDataset, args, model_name: str):
-    """Test-set IoU + overlay PNGs + times.txt (fcn.py:384-492)."""
+    """Test-set IoU + overlay PNGs + times.txt (fcn.py:384-492). Under a
+    mesh every rank evaluates, and rank 0 alone writes and prints."""
+    writer = common.is_writer()
     time_str = datetime.now()
     time_str = "{}_{}_{} {}-{}".format(
         time_str.year, time_str.month, time_str.day, time_str.hour, time_str.minute
     )
     output_dir = os.path.join(args.runs_dir, model_name, time_str)
-    os.makedirs(output_dir, exist_ok=True)
+    if writer:
+        os.makedirs(output_dir, exist_ok=True)
 
     gt_dir, imgs_dir = dataset.dirs["test"]
     _, imgs_paths = get_files_paths(gt_dir, imgs_dir)
@@ -144,6 +156,8 @@ def run_inference(trainer: FCNTrainer, dataset: SegmentationDataset, args, model
         miou.cm = miou.cm + torch.from_numpy(m["cm"])
         per_image.append(miou.result())  # running IoU, like the streaming metric
         t1 = time.time() - t0
+        if not writer:
+            continue
         probs = torch.from_numpy(m["probs"][0])
         overlay = segmentation_overlay(
             torch.from_numpy(images[0]), probs[:, :, 0] > 0.5, probs[:, :, 1] > 0.5,
@@ -154,11 +168,13 @@ def run_inference(trainer: FCNTrainer, dataset: SegmentationDataset, args, model
         out_path = os.path.join(output_dir, os.path.basename(image_file))
         common.imwrite(out_path, overlay[:, :, ::-1])  # RGB -> BGR for the writer
 
+    test_mean_iou = miou.result()
+    if not writer:
+        return test_mean_iou
     with open("times.txt", "w") as f:
         for pair in times:
             f.write(pair)
 
-    test_mean_iou = miou.result()
     print("TEST: mean iou of test set: {}".format(test_mean_iou))
     metric_path = os.path.join(args.logging_dir, model_name, "iou")
     os.makedirs(metric_path, exist_ok=True)
@@ -171,9 +187,6 @@ def run_inference(trainer: FCNTrainer, dataset: SegmentationDataset, args, model
 
 def main(argv=None):
     args = build_arg_parser().parse_args(argv)
-    if args.mesh:
-        raise SystemExit("--mesh: multi-device training is not ported yet (ROADMAP A6, "
-                         "sharded training: parallel/train_step.py and the trainers' mesh)")
 
     if args.mode == "train":
         if args.epochs is None:
@@ -189,21 +202,32 @@ def main(argv=None):
     else:
         raise SystemExit(f"unknown mode {args.mode}")
 
+    device, own_group, mesh = None, False, None
+    if args.mesh:
+        from ..parallel import make_mesh
+
+        device, own_group = common.join_mesh(args)
+        mesh = make_mesh()  # dp x tp over every rank
+    writer = common.is_writer()
     dataset = make_dataset(args)
-    trainer = make_trainer(args)
+    trainer = make_trainer(args, device, mesh)
     model_var_dir = os.path.join(args.model_dir, model_name)
 
     if args.mode == "train":
-        trainer.fit(dataset, log_dir=args.logging_dir, model_name=model_name)
+        trainer.fit(dataset, log_dir=args.logging_dir if writer else None,
+                    model_name=model_name, verbose=writer)
         if args.inference_flag:
             run_inference(trainer, dataset, args, model_name)
-        os.makedirs(model_var_dir, exist_ok=True)
+        if writer:
+            os.makedirs(model_var_dir, exist_ok=True)
         trainer.save_msgpack(os.path.join(model_var_dir, "fcn8s.msgpack"))
         trainer.save_checkpoint(os.path.join(model_var_dir, "checkpoints"))
-        print(f"Saving model to: {model_var_dir}")
+        if writer:
+            print(f"Saving model to: {model_var_dir}")
     else:
         load_weights(trainer, model_var_dir)
         run_inference(trainer, dataset, args, model_name)
+    common.leave_mesh(own_group)
 
 
 if __name__ == "__main__":

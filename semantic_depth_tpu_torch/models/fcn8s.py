@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.s2d import depth_to_space, space_to_depth
-from . import spatial
+from . import spatial, tensor_parallel
 from .init import lecun_normal_, truncated_normal_
 
 # VGG16 conv stacks: (num convs, channels) per block; pools between blocks.
@@ -89,23 +89,29 @@ class FCN8s(nn.Module):
                 lecun_normal_(layer, generator)
         self.to(compute_dtype)
 
-    def _dropout(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+    def _dropout(self, x: torch.Tensor, generator: Optional[torch.Generator], tp=None,
+                 split: bool = False) -> torch.Tensor:
         """flax's inverted dropout at rate 1 - keep: each unit kept with
         probability keep and scaled by 1 / keep, the mask drawn from
         ``generator``. A keep of 1 returns the input unchanged, as flax does
-        at rate 0. The masks cannot equal flax's, whose stream is JAX's."""
+        at rate 0. The masks cannot equal flax's, whose stream is JAX's.
+        Under ``tp`` the mask is the single-device one, cut to this rank's
+        block (``tensor_parallel.keep_mask``; ``split``: ``x`` holds a block
+        of the channels)."""
         keep = self.dropout_keep_prob
         if keep == 1.0:
             return x
-        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        mask = tensor_parallel.keep_mask(x, keep, generator, tp, split)
         # a true division (a host scalar would be a multiply by 1 / keep on the card)
         return torch.where(mask, x / x.new_tensor(keep), 0.0)
 
     def forward(self, images: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None, rows=None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, rows=None, tp=None) -> torch.Tensor:
         """``rows``: a ``parallel.spatial.RowShard`` when ``images`` holds
         this rank's rows of the frames (the sp mesh axis); the logits come
-        back in the same rows."""
+        back in the same rows. ``tp``: a ``parallel.train_step.TensorShard``
+        when fc6 and fc7 hold this rank's blocks of their channels (the tp
+        mesh axis) and ``images`` this rank's rows of the batch."""
         x = images.to(self.compute_dtype)
         if self.input_s2d:
             x = space_to_depth(x)  # (B, H/2, W/2, 12)
@@ -119,12 +125,12 @@ class FCN8s(nn.Module):
                 skips["pool3"] = x  # H/8
             elif bi == 4:
                 skips["pool4"] = x  # H/16
-        x = F.relu(spatial.conv(self.fc6, x, rows))
+        x = F.relu(tensor_parallel.column(self.fc6, x, tp, rows))
         if train:
-            x = self._dropout(x, generator)
-        x = F.relu(spatial.conv(self.fc7, x, rows))  # H/32
+            x = self._dropout(x, generator, tp, split=True)
+        x = F.relu(tensor_parallel.row(self.fc7, x, tp, rows))  # H/32
         if train:
-            x = self._dropout(x, generator)
+            x = self._dropout(x, generator, tp)
         fuse4 = (spatial.conv_transpose(self.upscore2, spatial.conv(self.score_fc7, x, rows), rows)
                  + spatial.conv(self.score_pool4, skips["pool4"], rows))
         fuse3 = (spatial.conv_transpose(self.upscore4, fuse4, rows)

@@ -54,17 +54,17 @@ def flax_from_module(module: torch.nn.Module) -> Dict[str, Any]:
     """The inverse of ``state_dict_from_flax``: ``{"params": {layer:
     {"kernel", "bias"}}}`` of float32 numpy arrays, kernels back in flax's
     layout (``permute(2, 3, 1, 0)``)."""
-    return _flax_tree(module.state_dict().items())
+    return flax_tree(module.state_dict().items())
 
 
-def _flax_tree(named_tensors) -> Dict[str, Any]:
+def flax_tree(named_tensors) -> Dict[str, Any]:
     """``(name, tensor)`` pairs keyed as the module's parameters -> a flax
     variable tree of float32 numpy arrays."""
     params: Dict[str, Any] = {}
     for name, tensor in named_tensors:
         layer, kind = name.rsplit(".", 1)
         t = tensor.detach().float().cpu()
-        leaf = t.permute(2, 3, 1, 0).contiguous() if kind == "weight" else t
+        leaf = t.permute(2, 3, 1, 0).contiguous() if kind == "weight" else t.clone()
         params.setdefault(layer, {})["kernel" if kind == "weight" else "bias"] = leaf.numpy()
     return {"params": params}
 
@@ -98,6 +98,6 @@ def optax_from_adam_state(state: Mapping[int, Mapping[str, torch.Tensor]],
     variable trees of float32 numpy arrays, from a torch Adam
     ``state_dict()["state"]`` over ``module.parameters()``."""
     names = [name for name, _ in module.named_parameters()]
-    trees = {key: _flax_tree((name, state[i][field]) for i, name in enumerate(names))
+    trees = {key: flax_tree((name, state[i][field]) for i, name in enumerate(names))
              for key, field in (("mu", "exp_avg"), ("nu", "exp_avg_sq"))}
     return {"count": np.int32(int(state[0]["step"])), **trees}

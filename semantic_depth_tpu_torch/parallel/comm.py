@@ -6,7 +6,10 @@ sharding annotations, and ``lax.ppermute`` moves the pp boundary. Here
 each mesh position is a process, and the data moves through these
 functions, written with collectives only (all_gather and broadcast, never
 send / recv), so that they run on every backend that carries two ranks on
-one card.
+one card. A sum over a group (``all_reduce_sum``) is an all_gather too: every
+rank adds the gathered blocks in group-rank order, so every rank holds the
+same bits, and replicated parameters updated from such a sum stay
+bit-identical on every rank.
 
 Tensors travel as raw bytes (``view(torch.uint8)``): the bits arrive as
 they left, -0.0 and nan included, and the backend never has to support
@@ -30,7 +33,7 @@ from typing import List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-KINDS = ("gather", "halo", "handoff", "broadcast")
+KINDS = ("gather", "halo", "handoff", "broadcast", "reduce")
 
 
 class Traffic:
@@ -140,6 +143,23 @@ def halo_rows(x: torch.Tensor, top: int, bottom: int, group, dim: int = -2) -> t
     above = blocks[rank - 1][1] if rank > 0 else torch.zeros_like(last)
     below = blocks[rank + 1][0] if rank < size - 1 else torch.zeros_like(first)
     return torch.cat([above, x, below], dim=dim)
+
+
+def all_reduce_sum(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
+    """Each tensor summed over the ranks of ``group``, the same bits on every
+    rank: one all_gather of the packed tensors, then the ranks' blocks added
+    in group-rank order (integers without rounding). Every rank passes
+    tensors of the same shapes and dtypes. A group of one rank returns the
+    tensors as they are. The gather moves world-size times the bytes, where
+    a ring all_reduce moves about twice them."""
+    if dist.get_world_size(group) == 1:
+        return list(tensors)
+    per_rank = [_unpack(b, tensors) for b in _exchange(_pack(tensors), group, "reduce")]
+    sums = [t.clone() for t in per_rank[0]]
+    for blocks in per_rank[1:]:
+        for acc, t in zip(sums, blocks):
+            acc += t
+    return sums
 
 
 def broadcast_tensors(tensors: Optional[Sequence[torch.Tensor]], src: int, group,

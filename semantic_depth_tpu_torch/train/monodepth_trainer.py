@@ -16,10 +16,12 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..models import Monodepth
 from ..ops.sampler import bilinear_sample_x, clip
+from ..parallel import comm
 from .trainer import AdamTrainer
 
 
@@ -131,7 +133,15 @@ def monodepth_loss(
 
 class MonodepthTrainer(AdamTrainer):
     """Stereo-pair trainer for the Monodepth model. ``seed`` draws the init
-    when neither ``model`` nor ``init_params`` is given."""
+    when neither ``model`` nor ``init_params`` is given.
+
+    ``mesh``: a ``DeviceMesh`` over every rank of the group, one process per
+    mesh position. Each stereo batch is split over all of its ranks, in
+    rank order (row-major over the mesh's dims), and the parameters and
+    Adam state are replicated: the gradients are averaged over the group
+    (``AdamTrainer._update``, the same bits on every rank), as the
+    JAX trainer's GSPMD all-reduce does. The batch must divide by the
+    mesh's rank count."""
 
     def __init__(
         self,
@@ -140,14 +150,26 @@ class MonodepthTrainer(AdamTrainer):
         init_params: Optional[Mapping[str, Any]] = None,
         seed: int = 0,
         device=None,
+        mesh=None,
     ):
         self.config = config
         if model is None:
             model = Monodepth(generator=torch.Generator().manual_seed(seed))
-        super().__init__(model, config.learning_rate, init_params, device)
+        super().__init__(model, config.learning_rate, init_params, device, mesh)
 
     def train_batch(self, left, right) -> Dict[str, float]:
         left, right = self._tensor(left), self._tensor(right)
+        if self.mesh is not None:  # this rank's rows of the batch
+            n, r = self.mesh.size(), dist.get_rank()
+            if left.shape[0] % n:
+                raise ValueError(f"batch size {left.shape[0]} must be a multiple of the mesh's "
+                                 f"device count {n}")
+            per = left.shape[0] // n
+            left, right = left[r * per:(r + 1) * per], right[r * per:(r + 1) * per]
         loss, aux = monodepth_loss(self.model(left), left, right, self.config)
         self._update(loss)
-        return {"loss": loss.item(), **{k: v.item() for k, v in aux.items()}}
+        values = [loss.detach(), *(v.detach() for v in aux.values())]
+        if self.mesh is not None:  # the group's mean of each: the whole batch's
+            values = [torch.div(t, t.new_tensor(float(n)))
+                      for t in comm.all_reduce_sum(values, None)]
+        return dict(zip(("loss", *aux), (v.item() for v in values)))

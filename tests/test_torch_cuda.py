@@ -640,3 +640,30 @@ def test_two_ranks_sharing_the_card_serve_dp_bit_equal(cuda):
     assert all(r["backend"] == "gloo" for r in ranks)
     assert all(r["shard"] == r["ref"] for r in ranks)
     assert ranks[0]["digest"] == ranks[1]["digest"]
+
+
+def test_two_ranks_sharing_the_card_train_fcn_like_one_process(cuda):
+    """The sharded FCN-8s step (``parallel/train_step.py``) on two gloo
+    ranks sharing the card, meshes (dp 1, tp 2) and (2, 1), width 0.25 with
+    fc 128 at 32x64, batch 8, keep 0.5: both steps' losses within rel 1e-4
+    of the single-process trainer's on the card (the JAX sharded test's
+    tolerance; the dropout masks are the same draws), and the replicated
+    parameters with their Adam moments bit-equal on both ranks."""
+    from semantic_depth_tpu_torch.models.from_flax import flax_from_module
+    from semantic_depth_tpu_torch.parallel.launch import run_ranks
+
+    import test_torch_parallel_ranks as cases
+
+    kw = dict(width_mult=0.25, fc_channels=128)
+    rng = np.random.default_rng(0)
+    spec = dict(lr=1e-3, hw=(32, 64), fcn_kw=kw,
+                params=flax_from_module(FCN8s(num_classes=3,
+                                              generator=torch.Generator().manual_seed(2), **kw)),
+                images=rng.uniform(0, 255, (8, 32, 64, 3)).astype(np.float32),
+                labels=np.eye(3, dtype=np.float32)[rng.integers(0, 3, (8, 32, 64))])
+    ranks = run_ranks(cases.fcn_steps_on_card, 2, spec, timeout_s=300)
+    assert ranks[0]["backend"] == "gloo"
+    for mesh in ((1, 2), (2, 1)):
+        for r in ranks:
+            assert r[mesh]["losses"] == pytest.approx(ranks[0]["single"], rel=1e-4), mesh
+        assert ranks[0][mesh]["digests"]["replicated"] == ranks[1][mesh]["digests"]["replicated"]

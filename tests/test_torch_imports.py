@@ -29,10 +29,12 @@ def _imports(path: Path):
 
 def test_port_sources_import_no_jax_and_no_jax_package():
     tools = [REPO / "tools" / name for name in ("profile_torch_port.py", "time_mad_radius.py",
-                                                "time_knn.py", "knn_variants.py")]
+                                                "time_knn.py", "knn_variants.py",
+                                                "train_bench_weights_torch.py")]
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + tools
     assert len(files) > 10
-    assert {"comm.py", "mesh.py", "spatial.py", "inference.py", "pp.py", "launch.py"} <= {
+    assert {"comm.py", "mesh.py", "spatial.py", "inference.py", "pp.py", "launch.py",
+            "train_step.py"} <= {
         f.name for f in files if f.parent.name == "parallel"}
     bad = [f"{f.relative_to(REPO)}:{line}: {mod}"
            for f in files for line, mod in _imports(f) if _banned(mod)]
@@ -63,7 +65,9 @@ def test_importing_the_port_loads_no_jax_package_module():
         "semantic_depth_tpu_torch.parallel.comm, semantic_depth_tpu_torch.parallel.mesh, "
         "semantic_depth_tpu_torch.parallel.spatial, semantic_depth_tpu_torch.models.spatial, "
         "semantic_depth_tpu_torch.parallel.inference, "
-        "semantic_depth_tpu_torch.parallel.pp, semantic_depth_tpu_torch.parallel.launch; "
+        "semantic_depth_tpu_torch.parallel.pp, semantic_depth_tpu_torch.parallel.launch, "
+        "semantic_depth_tpu_torch.parallel.train_step, "
+        "semantic_depth_tpu_torch.models.tensor_parallel, tools.train_bench_weights_torch; "
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('semantic_depth_tpu', 'flax', 'optax', 'orbax', 'msgpack', 'matplotlib'))))"
     )

@@ -1,5 +1,6 @@
 """What each rank runs in tests/test_torch_parallel.py,
-tests/test_torch_parallel_cli.py and tests/test_torch_cuda.py
+tests/test_torch_parallel_cli.py, tests/test_torch_parallel_train.py and
+tests/test_torch_cuda.py
 (``parallel.launch.run_ranks`` imports this module by name in every rank).
 It holds no test of its own, and imports torch and the port only: the
 ranks start fast and never load JAX."""
@@ -225,3 +226,180 @@ def run_dp_on_card(frames):
     ref = pipe.process_batch(frames[rank * per:(rank + 1) * per])
     return dict(backend=str(dist.get_backend()), digest=digest(out), ref=digest(ref),
                 shard=digest(out.map(lambda x: x[rank * per:(rank + 1) * per])))
+
+
+# --- multi-device training (tests/test_torch_parallel_train.py) ------------------------
+
+
+def _sha(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def replica_digests(trainer):
+    """Hashes of what this rank holds: the replicated parameters with their
+    Adam moments, and its blocks of the tp-split ones with theirs."""
+    from semantic_depth_tpu_torch.parallel.train_step import SPLIT_DIMS
+
+    parts = {True: [], False: []}
+    for name, p in trainer.model.named_parameters():
+        st = trainer.optimizer.state[p]
+        parts[name in SPLIT_DIMS] += [p, st["exp_avg"], st["exp_avg_sq"]]
+    return dict(replicated=_sha(parts[False]), blocks=_sha(parts[True]))
+
+
+def flat(state) -> dict:
+    """A full state dict as ``torch_helpers.flax_flat`` keys and layouts."""
+    out = {}
+    for name, t in state.items():
+        layer, kind = name.rsplit(".", 1)
+        t = t.detach().cpu().clone()
+        out[f"{layer}.{'kernel' if kind == 'weight' else 'bias'}"] = (
+            t.permute(2, 3, 1, 0) if kind == "weight" else t).numpy()
+    return out
+
+
+def fcn_trainer(spec, mesh=None, keep=1.0, seed=0, batch_size=None, device="cpu"):
+    from semantic_depth_tpu_torch.config import TrainConfig
+    from semantic_depth_tpu_torch.train.trainer import FCNTrainer
+
+    cfg = TrainConfig(learning_rate=spec["lr"], image_shape=spec["hw"], epochs=1,
+                      batch_size=batch_size or len(spec["images"]))
+    return FCNTrainer(cfg, model=FCN8s(num_classes=3, dropout_keep_prob=keep, **spec["fcn_kw"]),
+                      init_params=spec["params"], seed=seed, device=device, mesh=mesh)
+
+
+def full_step(trainer, mesh, images, labels):
+    """One train step and what the tests compare of it: the metrics, and the
+    gathered gradients and parameters (``flat`` layout, numpy)."""
+    from semantic_depth_tpu_torch.parallel.train_step import gather_state_dict
+
+    m = trainer.train_batch(images, labels)
+    named = dict(trainer.model.named_parameters())
+    grads = {k: p.grad for k, p in named.items()}
+    if mesh is not None:
+        named, grads = gather_state_dict(mesh, named), gather_state_dict(mesh, grads)
+    return dict(loss=m["loss"], cm=m["cm"], grads=flat(grads), params=flat(named))
+
+
+class _RaggedData:
+    """A dataset of one full and one ragged train batch, one val batch."""
+
+    def __init__(self, images, labels):
+        self.images, self.labels = images, labels
+
+    def num_images(self, mode):
+        return len(self.images) + 3 if mode == "train" else len(self.images)
+
+    def batches(self, batch_size, mode="train"):
+        yield self.images, self.labels
+        if mode == "train":
+            yield self.images[:3], self.labels[:3]
+
+
+def fcn_mesh_cases(spec):
+    """The sharded FCN-8s trainer on each (dp, tp) of ``spec["meshes"]``:
+    two steps at keep 1.0 (rank 0 returns them), the replicas' digests, a
+    checkpoint after step 1, ``set_params``, a resumed single-process
+    checkpoint, two steps at keep 0.5, the ragged-batch errors and ``fit``'s
+    drop; rank 0 also runs the single-process trainer at keep 0.5."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from semantic_depth_tpu_torch.parallel.train_step import gather_fcn_params, shard_fcn_params
+
+    torch.set_num_threads(1)
+    rank, n = dist.get_rank(), dist.get_world_size()
+    images, labels = spec["images"], spec["labels"]
+    out = {}
+    if rank == 0:
+        single = fcn_trainer(spec, keep=0.5, seed=3)
+        out["single_keep05"] = [single.train_batch(images, labels)["loss"] for _ in range(2)]
+    for dp, tp in spec["meshes"]:
+        mesh = make_mesh(n, dp=dp, tp=tp)
+        t = fcn_trainer(spec, mesh)
+        steps = [full_step(t, mesh, images, labels)]
+        t.save_checkpoint(os.path.join(spec["dir"], f"{dp}x{tp}"))
+        steps.append(full_step(t, mesh, images, labels))
+        res = dict(digests=replica_digests(t), tp_rank=mesh.get_local_rank("tp"))
+        t.set_params(spec["params"])
+        again = full_step(t, mesh, images, labels)
+        r = fcn_trainer(spec, mesh)
+        r.restore_checkpoint(spec["single_ckpt"], 1)
+        resumed = full_step(r, mesh, images, labels)
+        k = fcn_trainer(spec, mesh, keep=0.5, seed=3)
+        res["keep05"] = [k.train_batch(images, labels)["loss"] for _ in range(2)]
+        res["ragged"] = raised(t.train_batch, images[:3], labels[:3])
+        # a flax tree sharded into a full-shape module and gathered back
+        tree = gather_fcn_params(mesh, shard_fcn_params(mesh, spec["params"],
+                                                        FCN8s(num_classes=3, **spec["fcn_kw"])))
+        res["tree_round_trip"] = all(
+            np.array_equal(tree["params"][layer][kind], v)
+            for layer, leaf in spec["params"]["params"].items() for kind, v in leaf.items())
+        fcn_trainer(spec, mesh, batch_size=1)  # test mode's construction
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            hist = t.fit(_RaggedData(images, labels), verbose=True)
+        res.update(fit_printed=printed.getvalue(), fit_step=t.step,
+                   fit_loss=hist["train_loss"][0])
+        if rank == 0:
+            res.update(steps=steps, again=again, resumed=resumed)
+        out[(dp, tp)] = res
+    return out
+
+
+def mono_mesh_case(spec):
+    """``MonodepthTrainer(mesh)`` over every rank (dp = world): two steps
+    (rank 0 returns them), the replicas' digest and the ragged-batch
+    error."""
+    import torch.distributed as dist
+
+    from semantic_depth_tpu_torch.train.monodepth_trainer import (MonodepthTrainConfig,
+                                                                  MonodepthTrainer)
+
+    torch.set_num_threads(1)
+    n = dist.get_world_size()
+    mesh = make_mesh(n, dp=n, tp=1)
+    t = MonodepthTrainer(MonodepthTrainConfig(learning_rate=spec["lr"]),
+                         model=Monodepth(encoder="vgg", **spec["mono_kw"]),
+                         init_params=spec["mono_params"], device="cpu", mesh=mesh)
+    left, right = spec["left"], spec["right"]
+    steps = []
+    for _ in range(2):
+        m = t.train_batch(left, right)
+        named = dict(t.model.named_parameters())
+        steps.append(dict(metrics=m, grads=flat({k: p.grad for k, p in named.items()}),
+                          params=flat(named)))
+    res = dict(digest=replica_digests(t)["replicated"],
+               ragged=raised(t.train_batch, left[:3], right[:3]))
+    if dist.get_rank() == 0:
+        res["steps"] = steps
+    return res
+
+
+def fcn_steps_on_card(spec):
+    """The sharded FCN-8s trainer on meshes (1, 2) and (2, 1) of the ranks
+    sharing this host's card, two steps at keep 0.5 with deterministic
+    cuDNN: its losses and replica digests; rank 0 also returns the
+    single-process trainer's losses on the card."""
+    import torch.distributed as dist
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    images, labels = spec["images"], spec["labels"]
+    out = dict(backend=str(dist.get_backend()))
+    if dist.get_rank() == 0:
+        single = fcn_trainer(spec, keep=0.5, seed=3, device=dev)
+        out["single"] = [single.train_batch(images, labels)["loss"] for _ in range(2)]
+    for dp, tp in ((1, 2), (2, 1)):
+        t = fcn_trainer(spec, make_mesh(dist.get_world_size(), dp=dp, tp=tp), keep=0.5, seed=3,
+                        device=dev)
+        out[(dp, tp)] = dict(losses=[t.train_batch(images, labels)["loss"] for _ in range(2)],
+                             digests=replica_digests(t))
+    return out

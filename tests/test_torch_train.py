@@ -404,8 +404,55 @@ def test_fcn_cli_train_then_test_on_the_cpu(tmp_path, wide_tree, monkeypatch):
     with pytest.raises(SystemExit, match="semantic_depth_tpu.models.convert"):
         tcli.main(["--mode", "train", "--epochs", "1", "--init_from",
                    str(tmp_path / "vgg16_tf_ckpt")] + args)
-    with pytest.raises(SystemExit, match="multi-device training is not ported yet"):
-        tcli.main(["--mode", "train", "--epochs", "1", "--mesh"] + args)
+    with pytest.raises(SystemExit, match="--mesh: no process group: .*torchrun"):
+        tcli.main(["--mode", "train", "--epochs", "1", "--mesh"] + args)  # no torchrun here
+
+
+def test_fcn_cli_mesh_under_torchrun_writes_the_unsharded_msgpack(tmp_path, wide_tree):
+    """``cli.fcn --mesh --device cpu`` under torchrun with two CPU ranks (the
+    default mesh of two: dp 1, tp 2; keep 0.5, so the dropout masks are
+    cut from the single-device draws) against the unsharded CLI, one epoch
+    of 3 steps at lr 1e-5: the same logged losses, and every weight of
+    ``fcn8s.msgpack`` within 2 lr x steps (Adam may step an element whose
+    gradient is float32 noise either way, and the tp sum adds in another
+    order), most of them far closer."""
+    import subprocess
+    import sys
+
+    from semantic_depth_tpu_torch.models import weights as tweights
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    runs = {}
+    for mode in ("single", "mesh"):
+        work = tmp_path / mode
+        work.mkdir()
+        args = _cli_args(wide_tree, work) + ["--mode", "train", "--epochs", "1", "--device",
+                                             "cpu", "--inference_flag"]
+        cmd = [sys.executable, "-m", "semantic_depth_tpu_torch.cli.fcn", *args]
+        if mode == "mesh":
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                   "--nproc_per_node", "2", "-m", "semantic_depth_tpu_torch.cli.fcn", *args,
+                   "--mesh"]
+        env = dict(os.environ, OMP_NUM_THREADS="1",
+                   PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
+        proc = subprocess.run(cmd, cwd=work, env=env, capture_output=True, text=True,
+                              timeout=240)
+        assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("Epoch 1/1")]
+        assert len(lines) == 1, proc.stdout  # rank 0 alone prints
+        name = "1-Epochs-cityscapes_toy"
+        runs[mode] = (lines[0].split("(")[0],
+                      tweights.load_params(str(work / "models" / name / "fcn8s.msgpack")))
+        assert (work / "models" / name / "checkpoints" / "step_3" / "state.pt").is_file()
+    assert "backend gloo, world size 2" in proc.stdout
+    assert runs["mesh"][0] == runs["single"][0]  # "Epoch 1/1: train loss ... | val ..."
+    got, want = flax_flat(runs["mesh"][1]), flax_flat(runs["single"][1])
+    assert got.keys() == want.keys()
+    close = 0
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name], w, rtol=0, atol=2 * 1e-5 * 3, err_msg=name)
+        close += int((np.abs(got[name] - w) <= 1e-7).sum())
+    assert close > 0.9 * sum(w.size for w in want.values())
 
 
 def test_fcn_cli_test_mode_on_a_jax_msgpack_gives_the_jax_iou(tmp_path, wide_tree,
