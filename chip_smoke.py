@@ -117,10 +117,34 @@ either is missing or any check fails. Phases:
    tree, one epoch, its ``fcn8s.msgpack`` served by ``build_pipeline``; (d)
    ``tools/train_bench_weights_torch.py`` at 30 steps a network: falling
    losses, both msgpacks read back, the sets served by ``process_batch``
-   on bench scenes (K1-K3's launches; the rw MAE printed, not gated).
+   on bench scenes (K1-K3's launches; the rw MAE printed, not gated);
+13. K1 and K4 at every parameter the JAX package takes, and the offline
+   tools: (a) K1's general kernel (any (k, window) but the road chain's)
+   bit-equal to its plain version at (8, 256, 512) for (k, window) = (20,
+   (5, 21)), (10, (7, 21)), (10, (5, 31)), (10, (7, 31)), (6, (4, 20)),
+   (40, (9, 33)) and (20, (7, 31)), on grids with valid +-inf points, and
+   at the native (2, 1024, 2048) launch under stat_window (7, 31); the road
+   chain's (10, (5, 21)) still on the specialised kernel; (b) K4's large-k
+   kernel at k = 33, 50, 64 and 100 bit-equal on (8, 16384) (skip on and
+   off) and (1, 131072); kernel, plain and bound ms of each; (c) the outlier
+   tool with ``--nb_neighbors 50`` as a subprocess, its PLY equal to the
+   plain versions' keep set, and ``filter_ply`` in process (K4 large-k x1,
+   K3 x1); (d) the geometry tail under stat_window (7, 31), k = 20 on the
+   card against the CPU (1e-3 m), and full-width bfloat16 ``process_batch``
+   at batch 8 under it (K1 general x1, K2 x4, K3 x1) and under the default
+   setting (no general launch); (e) ``tools/pin_window_torch.py`` at
+   1024x2048, all four windows; (f) ``tools/train_monodepth_synth_torch.py``
+   at 30 full-width steps with a falling loss; (g) one native
+   ``tools/profile_blocks_torch.py`` call (float32 and bfloat16, the
+   longest kernels of each block); (h) ``tools/native_mae_curve_torch.py``
+   at 4 full-width steps a network, one eval point on 4 scenes, in a
+   temporary directory, with each training's seconds a step at 1024x2048.
 
 The second-to-last lines are the card's name and power limit and one JSON
-object with the kernels' numbers (``frozen_launches``: phase 10's programs');
+object with the kernels' numbers (``frozen_launches``: phase 10's programs';
+null, not measured, for phase 13's general K1 and large-k K4, whose
+``launches`` are phase 13's paths': (d)'s ``process_batch`` and (c)'s
+``filter_ply``);
 the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -269,11 +293,9 @@ def phase_kernels(dev, scenes):
     log(f"  K1 against the plain version on the CPU: max abs err "
         f"{(got.cpu()[fin_cpu] - want_cpu[fin_cpu]).abs().max().item():.3e}, "
         f"bit-equal {torch.equal(got.cpu(), want_cpu)}")
-    b, h, w = valid.shape
+    t_bound, by = knn_grid_bound(valid)
     cand = torch.nn.functional.conv2d(
         valid.float()[:, None], torch.ones((1, 1, 5, 21), device=dev), padding=(2, 10))[:, 0]
-    n_ops = float((cand * valid).sum()) * 28.0 + float(valid.sum()) * 21.0
-    t_bound, by = bound_ms(b * h * w * (12 + 1 + 4), n_ops)
     pairs_all = float(valid.sum()) * 5 * 21  # the kernel scores every offset of a valid pixel
     rows["knn_grid"] = dict(
         name="knn_grid", route="cuda", source="semantic_depth_tpu_torch/csrc/knn_grid.cu",
@@ -895,15 +917,20 @@ def native_config(**kw):
     return config.munich_pipeline_config(input_height=1024, input_width=2048, **kw)
 
 
-def knn_grid_bound(valid):
-    """K1's bound on these inputs (phase 3's rule): each point read and each
-    mean written once; each (valid pixel, valid candidate) pair at 28
-    operations plus 21 a valid pixel for its selection."""
+def knn_grid_bound(valid, k=10, window=(5, 21)):
+    """K1's bound on these inputs: each point read and each mean written
+    once; 9 float32 operations for each (valid pixel, valid candidate)
+    pair (three differences, three squares, two sums and the compare that
+    selects it or not), whatever k is; and 2k + 1 for each valid pixel with
+    at least k valid candidates (k square roots, k - 1 sums, the division
+    and the select), the others' +inf needing none."""
     b, h, w = valid.shape
+    wh, ww = window
     cand = torch.nn.functional.conv2d(
-        valid.float()[:, None], torch.ones((1, 1, 5, 21), device=valid.device),
-        padding=(2, 10))[:, 0]
-    n_ops = float((cand * valid).sum()) * 28.0 + float(valid.sum()) * 21.0
+        valid.float()[:, None], torch.ones((1, 1, wh, ww), device=valid.device),
+        padding=(wh // 2, ww // 2))[:, 0, :h, :w]
+    n_ops = (float((cand * valid).sum()) * 9.0
+             + float((valid & (cand >= k)).sum()) * (2.0 * k + 1))
     return bound_ms(b * h * w * (12 + 1 + 4), n_ops)
 
 
@@ -2197,6 +2224,389 @@ def phase_multi_device_training(dev, frames, smi, n_steps=3):
     return res
 
 
+# --- phase 13: K1 and K4 at every parameter, and the offline tools ------------
+# (k, window) cases of the general K1 kernel; (20, (7, 31)) is the path's
+K1_GENERAL_CASES = ((20, (5, 21)), (10, (7, 21)), (10, (5, 31)), (10, (7, 31)), (6, (4, 20)),
+                    (40, (9, 33)), (20, (7, 31)))
+K1_PATH = (20, (7, 31))  # the road config phase 13's process_batch runs
+K4_LARGE_K = (33, 50, 64, 100)
+K4_PATH_K = 50  # the outlier tool's --nb_neighbors in phase 13
+
+
+class _Count:
+    """A wrapper's second counter (the general K1 kernel's launches, the
+    large-k K4 kernel's) seen as a ``launches`` attribute, so that
+    ``reset_counts`` / ``read_counts`` take it."""
+
+    def __init__(self, fn, attr):
+        self.fn, self.attr = fn, attr
+
+    @property
+    def launches(self):
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, n):
+        setattr(self.fn, self.attr, n)
+
+
+def param_counters():
+    """``kernel_counters`` and the two kernels phase 13 adds, by row name."""
+    from semantic_depth_tpu_torch.ops import exact_knn, knn_grid
+
+    return dict(kernel_counters(),
+                knn_grid_general=_Count(knn_grid.knn_mean_distances_grid, "general_launches"),
+                exact_knn_large_k=_Count(exact_knn.knn_mean_distances_exact,
+                                         "large_k_launches"))
+
+
+def _same(a, b):
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
+
+
+def phase_k1_general(dev, scenes):
+    """The general K1 kernel against its plain version at every case, on
+    grids with valid +-inf points, at the native size, and the road chain's
+    setting still on the specialised kernel."""
+    from semantic_depth_tpu_torch import camera, config, pipeline
+    from semantic_depth_tpu_torch.models import FCN8s, Monodepth
+    from semantic_depth_tpu_torch.ops import knn_grid
+    from semantic_depth_tpu_torch.utils.probes import cuda_ms, recording_kernel_calls
+
+    log("[phase 13] (a) K1 general kernel at other (k, window), (8, 256, 512)")
+    fn, plain = knn_grid.knn_mean_distances_grid, knn_grid.knn_mean_distances_grid_plain
+    cfg = config.munich_pipeline_config()
+    g = torch.Generator(device="cpu").manual_seed(13)
+    pts_scene = camera.reproject_disparity(scenes["disp"][:4], cfg.camera)
+    valid_scene = scenes["road"][:4] & (pts_scene[..., 2] < -cfg.road.z_keep_beyond)
+    pts_rand = torch.randn((4, 256, 512, 3), generator=g).to(dev) * torch.tensor(
+        [2.0, 0.3, 5.0], device=dev)
+    valid_rand = (torch.rand((4, 256, 512), generator=g) < 0.3).to(dev)
+    pts = torch.cat([pts_scene, pts_rand]).contiguous()
+    valid = torch.cat([valid_scene, valid_rand]).contiguous()
+    cases = {}
+    for k, window in K1_GENERAL_CASES:
+        before = fn.general_launches
+        got, want = fn(pts, valid, k, window), plain(pts, valid, k, window)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(want)
+        check(fn.general_launches == before + 1 and torch.equal(got, want),
+              f"K1 general k={k} window={window}: one general launch, bit-equal to the plain "
+              f"version ({int(fin.sum())} finite of {fin.numel()})")
+        tx, ty, smem = knn_grid.general_block(k, window)
+        t_bound, by = knn_grid_bound(valid, k, window)
+        case = dict(k=k, window=list(window), block=[tx, ty], smem_bytes=smem,
+                    ms=cuda_ms(lambda: fn(pts, valid, k, window), iters=10),
+                    plain_ms=cuda_ms(lambda: plain(pts, valid, k, window), iters=2, warmup=1),
+                    bound_ms=t_bound, bound_by=by, finite=int(fin.sum()))
+        cases[f"k={k} window={window}"] = case
+        log(f"  K1 general k={k} {window}: block {tx}x{ty} ({smem} B shared), kernel "
+            f"{case['ms']:.4f} ms, plain {case['plain_ms']:.3f} ms, bound {t_bound:.4f} ms ({by})")
+
+    disp0 = scenes["disp"][:2].clone()
+    disp0[0, 150:170, 100:300] = 0.0
+    disp0[1, 200:256, :] = 0.0
+    pts_inf = camera.reproject_disparity(disp0, cfg.camera).contiguous()
+    valid_inf = torch.ones((2, 256, 512), dtype=torch.bool, device=dev)
+    valid_inf[1, ::3] = False
+    for k, window in ((20, (7, 31)), (6, (4, 20)), (40, (9, 33))):
+        got, want = fn(pts_inf, valid_inf, k, window), plain(pts_inf, valid_inf, k, window)
+        torch.cuda.synchronize()
+        check(_same(got, want), f"K1 general k={k} {window} with valid +-inf points bit-equal "
+              f"({int(want.isnan().sum())} nan, {int(torch.isinf(want[valid_inf]).sum())} +inf "
+              "among the valid pixels)")
+
+    log("[phase 13] (a) K1 general at the native (2, 1024, 2048), window (7, 31)")
+    nat = scene_batch(2, 1024, 2048, seed=7, dev=dev)
+    base = native_config()
+    ncfg = dataclasses.replace(base, road=dataclasses.replace(base.road, stat_window=(7, 31)))
+    cam, _ = pipeline._scaled_camera(ncfg, ncfg.camera.focal)
+    tiny = pipeline.SemanticDepthPipeline(
+        ncfg, FCN8s(width_mult=0.0625, fc_channels=32), Monodepth(width_mult=0.0625), device=dev)
+    with torch.inference_mode(), recording_kernel_calls() as calls:
+        tiny._batch_geometry(*[nat[k] for k in ("small", "road", "fence", "disp")], cam)
+    (npts, nvalid, nk, nwin), = calls["knn_grid"]
+    check(tuple(npts.shape) == (2, 1024, 2048, 3) and (nk, tuple(nwin)) == (10, (7, 31)),
+          f"K1 native launch under stat_window (7, 31): {tuple(npts.shape)}, k={nk}")
+    got, want = fn(npts, nvalid, nk, nwin), plain(npts, nvalid, nk, nwin)
+    torch.cuda.synchronize()
+    check(_same(got, want), f"K1 general native (2, 1024, 2048) k=10 (7, 31) bit-equal "
+          f"({int(torch.isfinite(want).sum())} finite)")
+    t_bound, by = knn_grid_bound(nvalid, nk, tuple(nwin))
+    native = dict(ms=cuda_ms(lambda: fn(npts, nvalid, nk, nwin), iters=10),
+                  plain_ms=cuda_ms(lambda: plain(npts, nvalid, nk, nwin), iters=2, warmup=1),
+                  bound_ms=t_bound, bound_by=by)
+    log(f"  K1 general native k=10 (7, 31): kernel {native['ms']:.4f} ms, plain "
+        f"{native['plain_ms']:.3f} ms, bound {t_bound:.4f} ms ({by})")
+    del nat, tiny, calls, npts, nvalid
+
+    before, launches = fn.general_launches, fn.launches
+    got = fn(pts, valid, knn_grid.KERNEL_K, knn_grid.KERNEL_WINDOW)
+    torch.cuda.synchronize()
+    check(fn.general_launches == before and fn.launches == launches + 1
+          and torch.equal(got, plain(pts, valid, knn_grid.KERNEL_K, knn_grid.KERNEL_WINDOW)),
+          "K1 at the road chain's k=10 (5, 21) launches the specialised kernel, bit-equal")
+    main = cases[f"k={K1_PATH[0]} window={K1_PATH[1]}"]
+    row = dict(name="knn_grid_general", route="cuda",
+               source="semantic_depth_tpu_torch/csrc/knn_grid.cu",
+               replaces="semantic_depth_tpu/ops/pallas_knn.py:36", max_abs_err=0.0,
+               ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+               bound_by=main["bound_by"], library_ms=None, library_note=_NO_LIBRARY,
+               shape=f"points (8, 256, 512, 3) f32, valid (8, 256, 512), k={K1_PATH[0]}, "
+                     f"window {K1_PATH[1]}", cases=cases, native=native)
+    return row, (pts, valid)
+
+
+def phase_k4_large_k(dev, scenes, scene_cloud):
+    """The large-k K4 kernel against its plain version at k = 33, 50, 64 and
+    100 on the exact mode's road clouds and the scene cloud."""
+    from semantic_depth_tpu_torch.ops import exact_knn
+    from semantic_depth_tpu_torch.utils.probes import cuda_ms
+
+    log("[phase 13] (b) K4 large-k kernel at k = 33, 50, 64, 100")
+    fn, plain = exact_knn.knn_mean_distances_exact, exact_knn.knn_mean_distances_exact_plain
+    xyz, valid = exact_road_clouds(scenes)
+    big_xyz, big_valid, _ = scene_cloud
+    cases = {}
+    for k in K4_LARGE_K:
+        for name, (x, v) in (("road (8, 16384)", (xyz, valid)),
+                             ("scene (1, 131072)", (big_xyz, big_valid))):
+            before = fn.large_k_launches
+            got, want = fn(x, v, k), plain(x, v, k)
+            torch.cuda.synchronize()
+            fin = torch.isfinite(want)
+            err = (got[fin] - want[fin]).abs().max().item() if fin.any() else 0.0
+            check(fn.large_k_launches == before + 1 and torch.equal(got, want)
+                  and bool(torch.isfinite(got[v]).all()),
+                  f"K4 k={k} {name}: one large-k launch, bit-equal to the plain version "
+                  f"(max abs err {err}, {int(fin.sum())} finite)")
+            if name.startswith("road"):
+                check(torch.equal(fn(x, v, k, skip=False), want),
+                      f"K4 k={k} {name}: bit-equal with the box skip off")
+            t_bound, by, needed, _, _ = exact_knn_bound(v, k)
+            case = dict(k=k, ms=cuda_ms(lambda: fn(x, v, k), iters=5, warmup=1),
+                        bound_ms=t_bound, bound_by=by, pairs_needed=needed, max_abs_err=err)
+            if k == K4_PATH_K or name.startswith("road"):
+                case["plain_ms"] = cuda_ms(lambda: plain(x, v, k), iters=1, warmup=1)
+            cases[f"k={k} {name}"] = case
+            log(f"  K4 k={k} {name}: kernel {case['ms']:.4f} ms, plain "
+                f"{case.get('plain_ms', float('nan')):.3f} ms, bound {t_bound:.5f} ms ({by})")
+    main = cases[f"k={K4_PATH_K} scene (1, 131072)"]
+    row = dict(name="exact_knn_large_k", route="cuda",
+               source="semantic_depth_tpu_torch/csrc/exact_knn.cu",
+               replaces="semantic_depth_tpu/ops/pallas_exact_knn.py:32",
+               max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+               ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+               bound_by=main["bound_by"], library_ms=None, library_note=_NO_LIBRARY,
+               shape=f"xyz (1, 131072, 3) f32 (a scene cloud with outliers), k={K4_PATH_K}",
+               cases=cases)
+    return row
+
+
+def phase_outlier_large_k(dev, scene_cloud, counters):
+    """The outlier tool at --nb_neighbors 50: as a subprocess against the
+    plain versions' keep set, and ``filter_ply`` in process with the
+    launches counted (the large-k K4 row's path)."""
+    from semantic_depth_tpu_torch.io.ply import PlyCloud, read_ply
+    from semantic_depth_tpu_torch.ops import exact_knn, neighbors, radius
+    from semantic_depth_tpu_torch.utils.outlier_removal import filter_ply
+
+    log(f"[phase 13] (c) outlier_removal --nb_neighbors {K4_PATH_K} on the (1, 131072) scene "
+        "cloud")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    xyz, _, rgb = scene_cloud
+    with tempfile.TemporaryDirectory() as tmp:
+        src = PlyCloud(xyz[0].cpu().numpy(), rgb[0].cpu().numpy(),
+                       os.path.join(tmp, "scene")).save()
+        out = os.path.join(tmp, "inliers.ply")
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "semantic_depth_tpu_torch.utils.outlier_removal", src,
+             "--out", out, "--nb_neighbors", str(K4_PATH_K)], cwd=repo,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=600)
+        sub_s = time.time() - t0
+        log("  " + "\n  ".join(proc.stdout.strip().splitlines()[-3:]))
+        check(proc.returncode == 0, f"outlier_removal --nb_neighbors {K4_PATH_K} exits 0 "
+              f"({sub_s:.1f} s)")
+        pts, cols = read_ply(src)
+        n = pts.shape[0]
+        cap = 1 << max(10, (n - 1).bit_length())
+        x = np.zeros((cap, 3), np.float32)
+        rgb_np = np.zeros((cap, 3), np.float32)
+        x[:n], rgb_np[:n] = pts, cols
+        xt = torch.from_numpy(x)[None].to(dev)
+        vt = (torch.arange(cap) < n)[None].to(dev)
+        keep = neighbors._statistical_keep(
+            exact_knn.knn_mean_distances_exact_plain(xt, vt, K4_PATH_K), vt, 0.5)
+        keep = (keep & (radius.radius_counts_plain(xt, keep, keep.float(), 0.5) > 80))[0]
+        keep = keep.cpu().numpy()
+        want = PlyCloud(x[keep], rgb_np[keep], os.path.join(tmp, "plain")).save()
+        with open(out, "rb") as a, open(want, "rb") as b:
+            same = a.read() == b.read()
+        check(same, f"the CLI at --nb_neighbors {K4_PATH_K} keeps what the plain K4 + K3 "
+              f"versions keep on the card ({int(keep.sum())} of {n} points)")
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        filter_ply(src, os.path.join(tmp, "again.ply"), nb_neighbors=K4_PATH_K)
+        inproc_s = time.perf_counter() - t0
+        counts = read_counts(counters)
+    check(counts["exact_knn"] == 1 and counts["exact_knn_large_k"] == 1
+          and counts["radius"] == 1 and counts["knn_grid"] == 0,
+          f"filter_ply --nb_neighbors {K4_PATH_K}: launches {counts}")
+    return dict(points=n, kept=int(keep.sum()), subprocess_s=sub_s,
+                filter_ply_in_process_s=inproc_s, launches=counts)
+
+
+def phase_frame_program_7_31(dev, scenes, frames, counters):
+    """process_batch under stat_window (7, 31), k = 20: the geometry tail on
+    the card against the CPU on analytic scenes, and the full-width bfloat16
+    program's launches (the general K1 row's path), with the road chain's
+    default setting on the same networks beside it."""
+    from semantic_depth_tpu_torch import config, pipeline
+    from semantic_depth_tpu_torch.models import FCN8s, Monodepth
+
+    k, window = K1_PATH
+    log(f"[phase 13] (d) process_batch under stat_window {window}, stat_nb_neighbors {k}")
+
+    def road_cfg(**kw):
+        base = config.munich_pipeline_config(**kw)
+        return dataclasses.replace(base, road=dataclasses.replace(
+            base.road, stat_window=window, stat_nb_neighbors=k))
+
+    cfg = road_cfg()
+    cam, _ = pipeline._scaled_camera(cfg, cfg.camera.focal)
+    args = [scenes[key] for key in ("small", "road", "fence", "disp")]
+    pipes = {d: pipeline.SemanticDepthPipeline(
+        cfg, FCN8s(width_mult=0.0625, fc_channels=32), Monodepth(width_mult=0.0625), device=d)
+        for d in (dev, "cpu")}
+    reset_counts(counters)
+    with torch.inference_mode():
+        out_gpu = pipes[dev]._batch_geometry(*args, cam)
+        torch.cuda.synchronize()
+        tail_counts = read_counts(counters)
+        t0 = time.time()
+        out_cpu = pipes["cpu"]._batch_geometry(*[a[:2].cpu() for a in args], cam)
+        cpu_s = time.time() - t0
+    rw_g, rw_c = out_gpu.dist_rw.cpu().numpy(), out_cpu.dist_rw.numpy()
+    f2f_g, f2f_c = out_gpu.dist_f2f.cpu().numpy(), out_cpu.dist_f2f.numpy()
+    check(np.allclose(rw_g[:2], rw_c, atol=1e-3, rtol=0, equal_nan=True)
+          and np.allclose(f2f_g[:2], f2f_c, atol=1e-3, rtol=0, equal_nan=True)
+          and np.array_equal(out_gpu.rw_found[:2].cpu().numpy(), out_cpu.rw_found.numpy()),
+          f"(7, 31) k=20 tail: scenes 0-1 on the card within 1e-3 m of the CPU "
+          f"(rw {rw_g[:2].tolist()} / {rw_c.tolist()}; CPU {cpu_s:.1f} s)")
+    rw_mae = float(np.mean(np.abs(rw_g - scenes["rw_true"])))
+    check(np.isfinite(rw_mae) and rw_mae < 0.1, f"(7, 31) k=20 tail: rw MAE {rw_mae:.4f} m "
+          "< 0.1 m over the 8 scenes")
+    del pipes
+
+    pipe = full_pipeline(dev, "bfloat16", "grid")
+    expect = dict(GRID_LAUNCHES, knn_grid_general=1, exact_knn_large_k=0)
+    check(tail_counts == expect, f"(7, 31) k=20 tail launches per batch {tail_counts}")
+    res = dict(rw_mae_m=rw_mae, max_cuda_cpu_rw_m=float(np.nanmax(np.abs(rw_g[:2] - rw_c))),
+               cpu_s_two_scenes=cpu_s, tail_launches=tail_counts)
+    for key, c in (("(7, 31) k=20", road_cfg(compute_dtype="bfloat16")),
+                   ("default (5, 21) k=10", pipe.config)):
+        pipe.config = c
+        pipe.process_batch(frames)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts(counters)
+        out = pipe.process_batch(frames)
+        torch.cuda.synchronize()
+        counts = read_counts(counters)
+        want = dict(expect, knn_grid_general=int(key.startswith("(7")))
+        check(counts == want and bool(torch.isfinite(out.disparity).all()),
+              f"process_batch bf16 batch 8, {key}: launches {counts}")
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            pipe.process_batch(frames)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        res[key] = dict(launches=counts, frames_per_s=8.0 / statistics.median(times),
+                        batch_s=times)
+        log(f"  {key}: {8.0 / statistics.median(times):.2f} frames/s (median of 3)")
+    del pipe
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_offline_tools(dev, smi):
+    """pin_window at 1024x2048, the synthetic-stereo proof at a few steps,
+    one native profile_blocks call and the accuracy curve on a tiny budget."""
+    from tools import native_mae_curve_torch as curve_tool
+    from tools import pin_window_torch, profile_blocks_torch
+    from tools import train_bench_weights_torch as tbw
+    from tools import train_monodepth_synth_torch as synth
+
+    res = {}
+    log("[phase 13] (e) tools/pin_window_torch.py at 1024x2048")
+    t0 = time.time()
+    pin = pin_window_torch.run(1024, 2048, device=dev, log=lambda m: log("  " + m))
+    check(all(w["keep"] > 0 for w in pin["windows"].values()) and len(pin["windows"]) == 4,
+          f"pin_window: all four windows on the card ({time.time() - t0:.1f} s)")
+    res["pin_window"] = pin
+
+    log("[phase 13] (f) tools/train_monodepth_synth_torch.py, 30 steps, full width, 256x512")
+    args = synth.parser().parse_args(["--steps", "30"])
+    syn = synth.run(args, log=lambda m: None)
+    ls = syn["losses"]
+    check(len(ls) == 30 and np.isfinite(ls).all() and np.mean(ls[-5:]) < np.mean(ls[:5]),
+          f"synthetic stereo: loss {np.mean(ls[:5]):.4f} (steps 0-4) -> {np.mean(ls[-5:]):.4f} "
+          f"(steps 25-29); held-out corr {syn['corr']:.3f}, MAE {syn['mae_px']:.2f} px; "
+          f"{syn['step_s'] * 1e3:.1f} ms a step at batch 4")
+    res["synthetic_stereo"] = syn
+
+    log("[phase 13] (g) tools/profile_blocks_torch.py, native 4 x 1024x2048")
+    blocks = profile_blocks_torch.run(profile_blocks_torch.parser().parse_args(
+        ["--iters", "3", "--kernels"]), log=lambda m: log("  " + m))
+    check(all(np.isfinite(list(blocks["nets"][n][d].values())).all()
+              for n in ("fcn", "mono") for d in ("float32", "bfloat16")),
+          "profile_blocks: every block timed, both networks, float32 and bfloat16")
+    res["profile_blocks"] = blocks
+
+    log("[phase 13] (h) tools/native_mae_curve_torch.py, 4 steps a network, one eval point, "
+        "4 scenes, full width at 1024x2048")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        curve = curve_tool.main([
+            "--out_dir", os.path.join(tmp, "w"), "--curve", os.path.join(tmp, "curve.json"),
+            "--warm_steps", "4", "--train_scenes", "4", "--fcn_steps", "4", "--mono_steps", "4",
+            "--eval_every", "4", "--eval_scenes", "4", "--batch", "4"])
+        wall = time.time() - t0
+    step_s = curve["step_s"]
+    check(len(curve["curve"]) == 1 and curve["curve"][0]["step"] == 4
+          and {"fcn_fullres", "monodepth_fullres", "fcn_native", "monodepth_native"} <= set(step_s),
+          f"native_mae_curve: one eval point, seconds a step {step_s} ({wall:.1f} s)")
+    est = {"_fullres": (tbw.FCN_FR_PHASES[0][3] * step_s["fcn_fullres"],
+                        tbw.MONO_FR_PHASES[0][3] * step_s["monodepth_fullres"]),
+           "_native": (tbw.FCN_NATIVE_PHASES[0][3] * step_s["fcn_native"],
+                       tbw.MONO_NATIVE_PHASES[0][3] * step_s["monodepth_native"])}
+    log(f"  {smi}: the recipes' training seconds at these rates (FCN-8s, monodepth): {est}")
+    res["native_mae_curve"] = dict(curve, wall_s=wall, est_train_s=est)
+    return res
+
+
+def phase_params_and_tools(dev, scenes, scene_cloud, frames, smi):
+    """Phase 13: K1 and K4 at every parameter the JAX package takes, and the
+    offline tools."""
+    t_phase = time.time()
+    counters = param_counters()
+    res = {}
+    with torch.inference_mode():
+        k1_row, _ = phase_k1_general(dev, scenes)
+        k4_row = phase_k4_large_k(dev, scenes, scene_cloud)
+    res["outlier_removal"] = phase_outlier_large_k(dev, scene_cloud, counters)
+    res["frame_program"] = phase_frame_program_7_31(dev, scenes, frames, counters)
+    k1_row["launches"] = res["frame_program"]["(7, 31) k=20"]["launches"]["knn_grid_general"]
+    k4_row["launches"] = res["outlier_removal"]["launches"]["exact_knn_large_k"]
+    for row in (k1_row, k4_row):
+        row["frozen_launches"] = None  # not measured: phase 10 exports the default setting
+    res.update(phase_offline_tools(dev, smi))
+    res["wall_s"] = time.time() - t_phase
+    log(f"  phase 13 wall {res['wall_s']:.1f} s")
+    return res, {"knn_grid_general": k1_row, "exact_knn_large_k": k4_row}
+
+
 def codec_info():
     """Which image codecs import on this host (information, not a check)."""
     code = ("import importlib\n"
@@ -2267,6 +2677,7 @@ def main() -> int:
     frozen.update(phase_native_ply_and_tools(dev, scene_cloud, frames))
     multi = phase_multi_device(frames, smi)
     training = phase_multi_device_training(dev, frames, smi)
+    params, new_rows = phase_params_and_tools(dev, scenes, scene_cloud, frames, smi)
 
     for name, row in rows.items():
         row["launches"] = e2e["bfloat16_exact" if name == "exact_knn" else "float32"][
@@ -2276,9 +2687,11 @@ def main() -> int:
                                  launches=native["end_to_end"]["launches"][name])
         row["frozen_launches"] = frozen["single_exact_f32" if name == "exact_knn" else
                                         "batched_bf16"]["launches"][name]
+    rows.update(new_rows)
     summary = dict(card=smi, build_s=build_s, geometry=geom, end_to_end=e2e, native=native,
                    entry_points=entry, trainers=trainers, frozen=frozen, multi_device=multi,
-                   multi_device_training=training, kernels=list(rows.values()),
+                   multi_device_training=training, params_and_tools=params,
+                   kernels=list(rows.values()),
                    wall_s=time.time() - t_start)
     log("summary: " + json.dumps(summary))
     log(f"[done] wall {time.time() - t_start:.1f} s")

@@ -64,6 +64,16 @@
 //    walk's buf[K-1] and drops to the lanes' smallest buf[K-1] after each
 //    group. The K smallest of the 32 buffers are merged by K warp minima,
 //    in ascending order.
+// 4. exact_knn_large_kernel, for k > 32 in place of 2 and 3: the K smallest
+//    do not fit in registers, so each query's buffer lives in the scratch
+//    (dbuf, entry t of query i at t * B Cp + i), sorted, insertion from the
+//    end, its largest kept in a register for the reject. One thread a
+//    query, a warp the 32 rows of one subtile; it walks the groups outward
+//    from its own (own, +1, -1, +2, ...), each group's subtiles from its own
+//    subtile outward or from the side facing its own, and scans a subtile
+//    (staged in shared memory, one broadcast float4 a candidate) when a
+//    lane's own threshold does not rule out its group's box and then its
+//    box (the margin below).
 // skip = 0 turns every test and the deferral off: each warp scans every
 // candidate of its frame in row order (validation).
 // Each warp adds what it did to 64-bit counters: pairs of the near and the
@@ -546,6 +556,117 @@ __global__ void __launch_bounds__(kThreads) exact_knn_far_kernel(float* __restri
   if (lane == 0 && pairs) atomicAdd(sc.stats + kPairsFar, pairs);
 }
 
+__global__ void __launch_bounds__(kThreads) exact_knn_large_kernel(
+    const uint8_t* __restrict__ valid_all, float* __restrict__ out_all, Scratch sc, int C, int S,
+    int G, int k, int skip) {
+  __shared__ float4 stage[kWarps][kSub];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.y;
+  const int Cp = S * kSub;
+  const int row = blockIdx.x * kThreads + threadIdx.x;
+  const float4* __restrict__ cand = sc.cand + static_cast<size_t>(b) * Cp;
+  const float4* __restrict__ sub = sc.sub + static_cast<size_t>(b) * S * 2;
+  const float4* __restrict__ grp = sc.grp + static_cast<size_t>(b) * G * 2;
+  const size_t stride = static_cast<size_t>(gridDim.y) * Cp;  // B Cp
+  float* buf = sc.dbuf + static_cast<size_t>(b) * Cp + row;
+  const bool act = row < C && valid_all[static_cast<size_t>(b) * C + row];
+  const float4 q = act ? cand[row] : make_float4(0.f, 0.f, 0.f, CUDART_INF_F);
+  const float3 q3 = make_float3(q.x, q.y, q.z);
+  const float qa = margin(q.w);
+  float thr = act ? CUDART_INF_F : -CUDART_INF_F;  // -inf: never inserts
+  if (act)
+    for (int t = 0; t < k; ++t) buf[t * stride] = CUDART_INF_F;
+  if (!__any_sync(kFull, act)) {  // a warp's rows are one subtile: all past Cp or none
+    if (row < C) out_all[static_cast<size_t>(b) * C + row] = CUDART_INF_F;
+    return;
+  }
+  unsigned long long n_pairs = 0;
+
+  auto scan = [&](int si) {
+    if (skip) {
+      const float4 lo = sub[2 * si], hi = sub[2 * si + 1];
+      const bool need = act && !(lo.x > hi.x) &&
+                        !(gap2(q3, q3, lo, hi) > __fadd_rn(lane_t(thr, qa), margin(lo.w)));
+      if (!__any_sync(kFull, need)) return;
+    }
+    n_pairs += kSub * 32;
+    __syncwarp();
+    stage[warp][lane] = cand[si * kSub + lane];
+    __syncwarp();
+    for (int t = 0; t < kSub; ++t) {
+      const float4 c = stage[warp][t];
+      const float cross =
+          __fadd_rn(__fadd_rn(__fmul_rn(q.x, c.x), __fmul_rn(q.y, c.y)), __fmul_rn(q.z, c.z));
+      const float d2 = __fsub_rn(__fadd_rn(q.w, c.w), __fmul_rn(2.f, cross));
+      if (d2 < thr) {  // +inf and nan are never taken; the clamp as torch.clamp_min
+        const float v = fmaxf(d2, 0.f);
+        int j = k - 1;
+        float prev;
+        while (j > 0 && (prev = buf[(j - 1) * stride]) > v) {
+          buf[j * stride] = prev;
+          --j;
+        }
+        buf[j * stride] = v;
+        thr = buf[(k - 1) * stride];
+      }
+    }
+  };
+
+  const int own = (blockIdx.x * kThreads + warp * 32) / kSub, g0 = own / kGroup;
+  if (!skip) {
+    for (int si = 0; si < S; ++si) scan(si);
+  } else {
+    for (int u = 0; u < 2 * G; ++u) {  // the groups outward: g0, g0 + 1, g0 - 1, ...
+      const int d = (u + 1) >> 1;
+      const int g = g0 + ((u & 1) ? d : -d);
+      if (g < 0 || g >= G) continue;
+      if (g != g0) {
+        const float4 lo = grp[2 * g], hi = grp[2 * g + 1];
+        const bool need = act && !(lo.x > hi.x) &&
+                          !(gap2(q3, q3, lo, hi) > __fadd_rn(lane_t(thr, qa), margin(lo.w)));
+        if (!__any_sync(kFull, need)) continue;
+      }
+      const int first = g * kGroup, n_in = min(kGroup, S - first);
+      if (g == g0) {  // from the own subtile outward
+        for (int m = 0, done = 0; done < n_in; ++m) {
+          const int dd = (m + 1) >> 1;
+          const int r = own - first + ((m & 1) ? dd : -dd);
+          if (r < 0 || r >= n_in) continue;
+          ++done;
+          scan(first + r);
+        }
+      } else {  // from the side facing the own group
+        for (int t = 0; t < n_in; ++t) scan(first + (g < g0 ? n_in - 1 - t : t));
+      }
+    }
+  }
+  if (row < C) {
+    float result = CUDART_INF_F;
+    if (act) {  // the mean of the finite entries' roots, ascending
+      float acc = 0.f, cnt = 0.f;
+      for (int t = 0; t < k; ++t) {
+        const float v = buf[t * stride];
+        if (!(v < CUDART_INF_F)) break;
+        acc = __fadd_rn(acc, __fsqrt_rn(v));
+        cnt += 1.f;
+      }
+      result = __fdiv_rn(acc, fmaxf(cnt, 1.f));
+    }
+    out_all[static_cast<size_t>(b) * C + row] = result;
+  }
+  if (lane == 0) atomicAdd(sc.stats + kPairsNear, n_pairs);
+}
+
+int launch_large(const float* xyz, const uint8_t* valid, Scratch sc, float* out, int B, int C,
+                 int S, int G, int k, int skip, cudaStream_t stream) {
+  exact_knn_prep_kernel<<<dim3(G, B), kPrepThreads, 0, stream>>>(xyz, valid, sc, C, S, G);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S * kSub + kThreads - 1) / kThreads, B);
+  exact_knn_large_kernel<<<grid, kThreads, 0, stream>>>(valid, out, sc, C, S, G, k, skip);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int K>
 int launch(const float* xyz, const uint8_t* valid, Scratch sc, float* out, int B, int C, int S,
            int G, int skip, cudaStream_t stream) {
@@ -563,13 +684,13 @@ int launch(const float* xyz, const uint8_t* valid, Scratch sc, float* out, int B
 }  // namespace
 
 // scratch: float32 words laid out as ops/exact_knn.py::scratch_words says;
-// k in [1, 32] (the buffers' depth is a template parameter); skip = 0
-// scans every candidate.
+// k >= 1 (1..32: the buffers' depth is a template parameter; above: the
+// large-k kernel); skip = 0 scans every candidate.
 extern "C" int sd_exact_knn(const void* xyz, const void* valid, void* scratch, void* out, int B,
                             int C, int k, int skip, void* stream) {
   const int S = (C + kSub - 1) / kSub, G = (S + kGroup - 1) / kGroup;
   const size_t Cp = static_cast<size_t>(S) * kSub;
-  if (B < 1 || B > 65535 || C < 1 || static_cast<size_t>(B) * Cp >= (1u << 31))
+  if (B < 1 || B > 65535 || C < 1 || k < 1 || static_cast<size_t>(B) * Cp >= (1u << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   float* w = static_cast<float*>(scratch);
   Scratch sc;
@@ -580,7 +701,7 @@ extern "C" int sd_exact_knn(const void* xyz, const void* valid, void* scratch, v
   sc.grp = reinterpret_cast<float4*>(w);
   w += static_cast<size_t>(B) * G * 8;
   sc.dbuf = w;
-  w += B * Cp * k;
+  w += B * Cp * static_cast<size_t>(k);
   sc.drow = reinterpret_cast<int*>(w);
   w += B * Cp;
   sc.ndef = reinterpret_cast<int*>(w);
@@ -600,6 +721,6 @@ extern "C" int sd_exact_knn(const void* xyz, const void* valid, void* scratch, v
     SD_CASE(30) SD_CASE(31) SD_CASE(32)
 #undef SD_CASE
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch_large(x, v, sc, o, B, C, S, G, k, skip, s);
   }
 }

@@ -37,6 +37,24 @@
 // block whose halo holds such a point takes the exact path: the valid flag
 // as a branch (w != 0), nan never inserted but counted, and a mean of nan
 // when fewer than K of the window's WH * WW values are not nan.
+//
+// The kernel above is the one instantiation the road chain launches (k = 10,
+// window (5, 21)); knn_grid_general_kernel takes every other (k, wh, ww)
+// that knn_mean_distances_grid_plain does: 1 <= k <= wh * ww, any window,
+// odd or even (offsets -(wh / 2) .. wh - 1 - wh / 2, as the plain version's
+// padding and loop give them). The same scheme with runtime sizes:
+// - the block is tx x ty threads, two vertically adjacent pixels a thread,
+//   picked by the wrapper (ops/knn_grid.py::general_block) as the largest
+//   whose dynamic shared memory fits the card's opt-in limit: the
+//   (2 ty + wh - 1) x (tx + ww - 1) float4 halo, and for k > 32 the buffers;
+// - the visiting order is a table the wrapper builds on the host once per
+//   window (ops/knn_grid.py::visit_order, the rule of Order below) and
+//   passes in global memory, one int (dy << 16 | dx & 0xffff) an offset;
+//   every lane reads the same entry, so each read is one broadcast;
+// - the k smallest stay in registers for k <= 32 (a template over 1..32);
+//   above that in shared memory, k words a pixel, insertion from the end;
+// - the exact path as above, nan once fewer than k of the window's wh * ww
+//   values are not nan.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <math_constants.h>
@@ -188,6 +206,143 @@ __global__ void __launch_bounds__(kTx * kTy) knn_grid_kernel(
   }
 }
 
+// --- every other (k, window) --------------------------------------------------
+
+struct GeneralArgs {
+  const float* pts;
+  const uint8_t* valid;
+  float* out;
+  const int* order;  // the visiting order, (dy << 16) | (dx & 0xffff) an offset
+  int n_order, H, W, k, wh, ww, ph, pw;
+  int sh, sw;  // the halo tile
+};
+
+// K > 0: k == K, the buffers in registers; K == 0: any k, in shared memory
+// after the halo, entry j of pixel r of thread t at [(j * 2 + r) * n + t]
+template <int K>
+__global__ void __launch_bounds__(256) knn_grid_general_kernel(GeneralArgs a) {
+  constexpr int kBuf = K > 0 ? K : 1;  // the register buffer's depth
+  extern __shared__ float4 halo[];
+  const int n_threads = blockDim.x * blockDim.y;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int b = blockIdx.z;
+  const int x0 = blockIdx.x * blockDim.x, y0 = blockIdx.y * blockDim.y * kRows;
+  const size_t plane = static_cast<size_t>(a.H) * a.W;
+  const float* p = a.pts + b * plane * 3;
+  const uint8_t* v = a.valid + b * plane;
+
+  int nonfinite = 0;  // a valid point with a coordinate that is not finite
+  for (int i = tid; i < a.sh * a.sw; i += n_threads) {
+    const int gy = y0 + i / a.sw - a.ph, gx = x0 + i % a.sw - a.pw;
+    float4 cell = make_float4(0.f, 0.f, 0.f, CUDART_INF_F);
+    if (gy >= 0 && gy < a.H && gx >= 0 && gx < a.W) {
+      const size_t g = static_cast<size_t>(gy) * a.W + gx;
+      if (v[g]) {
+        cell = make_float4(p[3 * g], p[3 * g + 1], p[3 * g + 2], 0.f);
+        nonfinite |= !(isfinite(cell.x) && isfinite(cell.y) && isfinite(cell.z));
+      }
+    }
+    halo[i] = cell;
+  }
+  const bool exact_path = __syncthreads_or(nonfinite) != 0;
+
+  const int k = K > 0 ? K : a.k;
+  const int gx = x0 + threadIdx.x, gy0 = y0 + threadIdx.y * kRows;
+  const float4* row0 = halo + (threadIdx.y * kRows + a.ph) * a.sw + threadIdx.x + a.pw;
+  float* sbuf = reinterpret_cast<float*>(halo + a.sh * a.sw) + tid;
+  float4 c[kRows];
+  float rbuf[kRows][kBuf];
+  float thr[kRows];  // the buffer's largest; -inf: not a pixel of this thread
+  int n_nan[kRows];
+  bool any = false;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    c[r] = row0[r * a.sw];
+    const bool mine = gx < a.W && gy0 + r < a.H && c[r].w == 0.f;
+    any |= mine;
+    thr[r] = mine ? CUDART_INF_F : -CUDART_INF_F;
+    n_nan[r] = 0;
+    if (K > 0) {
+#pragma unroll
+      for (int j = 0; j < kBuf; ++j) rbuf[r][j] = CUDART_INF_F;
+    } else {
+      for (int j = 0; j < k; ++j) sbuf[(j * kRows + r) * n_threads] = CUDART_INF_F;
+    }
+  }
+  const int lo = -a.ph, hi = a.wh - 1 - a.ph;  // a pixel's own window rows
+  for (int i = 0; any && i < a.n_order; ++i) {
+    const int e = __ldg(a.order + i);
+    const int dy = e >> 16, dx = static_cast<int16_t>(e & 0xffff);
+    const float4 s = row0[dy * a.sw + dx];
+    if (exact_path && s.w != 0.f) continue;  // an invalid candidate: never taken
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (dy - r < lo || dy - r > hi) continue;
+      const float ex = __fsub_rn(c[r].x, s.x);
+      const float ey = __fsub_rn(c[r].y, s.y);
+      const float ez = __fsub_rn(c[r].z, s.z);
+      float d2 = __fadd_rn(__fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ey, ey)), __fmul_rn(ez, ez));
+      if (!exact_path)
+        d2 = __fadd_rn(d2, s.w);
+      else if (isnan(d2))
+        ++n_nan[r];  // nan fails the compare below
+      if (!(d2 < thr[r])) continue;
+      if (K > 0) {
+        float cand = d2;
+#pragma unroll
+        for (int j = 0; j < kBuf; ++j) {
+          const float low = fminf(rbuf[r][j], cand);
+          cand = fmaxf(rbuf[r][j], cand);
+          rbuf[r][j] = low;
+        }
+        thr[r] = rbuf[r][kBuf - 1];
+      } else {
+        float* bp = sbuf + r * n_threads;
+        const int stride = kRows * n_threads;
+        int j = k - 1;
+        float prev;
+        while (j > 0 && (prev = bp[(j - 1) * stride]) > d2) {
+          bp[j * stride] = prev;
+          --j;
+        }
+        bp[j * stride] = d2;
+        thr[r] = bp[(k - 1) * stride];
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (gx >= a.W || gy0 + r >= a.H) continue;
+    float result = CUDART_INF_F;
+    if (c[r].w == 0.f) {
+      float acc = 0.f;
+      if (K > 0) {
+#pragma unroll
+        for (int j = 0; j < kBuf; ++j) acc = __fadd_rn(acc, __fsqrt_rn(rbuf[r][j]));
+      } else {
+        for (int j = 0; j < k; ++j)
+          acc = __fadd_rn(acc, __fsqrt_rn(sbuf[(j * kRows + r) * n_threads]));
+      }
+      result = n_nan[r] > a.wh * a.ww - k
+                   ? CUDART_NAN_F
+                   : __fdiv_rn(acc, static_cast<float>(k));
+    }
+    a.out[b * plane + static_cast<size_t>(gy0 + r) * a.W + gx] = result;
+  }
+}
+
+template <int K>
+int launch_general(const GeneralArgs& a, int B, int tx, int ty, int smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        knn_grid_general_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((a.W + tx - 1) / tx, (a.H + ty * kRows - 1) / (ty * kRows), B);
+  knn_grid_general_kernel<K><<<grid, dim3(tx, ty), smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int sd_knn_grid(const void* pts, const void* valid, void* out, int B, int H, int W,
@@ -203,4 +358,44 @@ extern "C" int sd_knn_grid(const void* pts, const void* valid, void* out, int B,
 
 extern "C" const char* sd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Any (k, wh, ww) with 1 <= k <= wh * ww: order holds n_order entries (the
+// wrapper's visit_order), the block is tx x ty threads (tx * ty <= 256) with
+// smem bytes of dynamic shared memory (the halo; for k > 32 also the
+// buffers, 2 * tx * ty * k floats).
+extern "C" int sd_knn_grid_general(const void* pts, const void* valid, void* out,
+                                   const void* order, int n_order, int B, int H, int W, int k,
+                                   int wh, int ww, int tx, int ty, int smem, void* stream) {
+  if (k < 1 || k > wh * ww || tx < 1 || ty < 1 || tx * ty > 256 || B < 1 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  GeneralArgs a;
+  a.pts = static_cast<const float*>(pts);
+  a.valid = static_cast<const uint8_t*>(valid);
+  a.out = static_cast<float*>(out);
+  a.order = static_cast<const int*>(order);
+  a.n_order = n_order;
+  a.H = H;
+  a.W = W;
+  a.k = k;
+  a.wh = wh;
+  a.ww = ww;
+  a.ph = wh / 2;
+  a.pw = ww / 2;
+  a.sh = ty * kRows + wh - 1;
+  a.sw = tx + ww - 1;
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (k) {
+#define SD_CASE(K) \
+  case K:          \
+    return launch_general<K>(a, B, tx, ty, smem, s);
+    SD_CASE(1) SD_CASE(2) SD_CASE(3) SD_CASE(4) SD_CASE(5) SD_CASE(6) SD_CASE(7) SD_CASE(8)
+    SD_CASE(9) SD_CASE(10) SD_CASE(11) SD_CASE(12) SD_CASE(13) SD_CASE(14) SD_CASE(15)
+    SD_CASE(16) SD_CASE(17) SD_CASE(18) SD_CASE(19) SD_CASE(20) SD_CASE(21) SD_CASE(22)
+    SD_CASE(23) SD_CASE(24) SD_CASE(25) SD_CASE(26) SD_CASE(27) SD_CASE(28) SD_CASE(29)
+    SD_CASE(30) SD_CASE(31) SD_CASE(32)
+#undef SD_CASE
+    default:
+      return launch_general<0>(a, B, tx, ty, smem, s);
+  }
 }

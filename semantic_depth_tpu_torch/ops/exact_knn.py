@@ -21,6 +21,11 @@ field first and skips what provably holds no neighbour. The result does not
 depend on which candidates are skipped or in what order the rest are
 visited (the kept values are the multiset of the k smallest), so skipping
 changes no bit. ``skip=False`` scans every candidate in row order.
+
+For k > ``REGISTER_MAX_K`` the k smallest do not fit in registers: a fourth
+kernel takes the place of the two walks, one thread a query, its sorted
+buffer in the scratch, the same box tests against its own threshold. Its
+launches count in ``launches`` and in ``large_k_launches``.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ import torch.nn.functional as F
 from . import _cuda
 from .pcl import valid_span
 
-KERNEL_MAX_K = 32  # csrc/exact_knn.cu instantiates k = 1 .. 32
+REGISTER_MAX_K = 32  # the walks of csrc/exact_knn.cu take k = 1 .. 32; above: the large-k kernel
 # csrc/exact_knn.cu's constants
 SUBTILE = 32  # candidates per box
 GROUP = 32  # subtiles per group box (1024 candidates)
@@ -118,9 +123,9 @@ def subtile_boxes(xyz: torch.Tensor, valid: torch.Tensor):
 def scratch_words(b: int, c: int, k: int) -> int:
     """float32 words of the kernels' scratch, in this order: the candidates
     as (x, y, z, |c|^2) (B, 32 S, 4), the subtile boxes (B, S, 8), the group
-    boxes (B, G, 8), the deferred queries' buffers (B * 32 S, k) and rows
-    (B * 32 S int32), and 8 words of counters (the deferred count and the
-    64-bit ``STATS``)."""
+    boxes (B, G, 8), the deferred queries' buffers (B * 32 S, k; for k > 32
+    every query's, (k, B * 32 S)) and rows (B * 32 S int32), and 8 words of
+    counters (the deferred count and the 64-bit ``STATS``)."""
     s, cp, g = _sizes(c)
     return b * (cp * 4 + s * 8 + g * 8 + cp * k + cp) + 16
 
@@ -166,9 +171,9 @@ def _(xyz, valid, k, skip):
 
 @_exact_knn_op.register_kernel("cuda")
 def _(xyz, valid, k, skip):
-    """The three kernels, or raise."""
-    if not 1 <= k <= KERNEL_MAX_K:
-        raise ValueError(f"the CUDA kernel is built for 1 <= k <= {KERNEL_MAX_K}; got k={k}")
+    """The kernels, or raise."""
+    if k < 1:
+        raise ValueError(f"k must be at least 1, got k={k}")
     if xyz.ndim != 3 or xyz.shape[-1] != 3:
         raise ValueError(f"xyz must be (B, C, 3), got {tuple(xyz.shape)}")
     b, c, _ = xyz.shape
@@ -182,6 +187,8 @@ def _(xyz, valid, k, skip):
     scratch = torch.empty(scratch_words(b, c, k), dtype=torch.float32, device=xyz.device)
     _launch(xyz, valid, k, skip, scratch, out)
     knn_mean_distances_exact.launches += 1
+    if k > REGISTER_MAX_K:
+        knn_mean_distances_exact.large_k_launches += 1
     return out
 
 
@@ -192,9 +199,12 @@ def knn_mean_distances_exact(
     through the op ``sd_torch::exact_knn``. CPU tensors take the plain
     version; CUDA tensors launch the kernels (a preparation kernel, grid
     (G, B); the search, grid (ceil(C / BLOCK_QUERIES), B); the deferred
-    queries' kernel; counted once in ``launches``) or raise.
-    ``skip=False`` scans every candidate in row order (validation)."""
+    queries' kernel; for k > 32 the large-k kernel in place of the last two;
+    counted once in ``launches``, and in ``large_k_launches`` for k > 32)
+    or raise. ``skip=False`` scans every candidate in row order
+    (validation)."""
     return _exact_knn_op(xyz, valid, int(k), bool(skip))
 
 
 knn_mean_distances_exact.launches = 0
+knn_mean_distances_exact.large_k_launches = 0

@@ -15,19 +15,78 @@ smallest whatever the order, so the result is bit-equal to the plain
 version's; a block whose tile holds a valid point with a coordinate that
 is not finite takes an exact path that keeps torch.topk's order of nan
 after +inf.
+
+The road chain's (k, window) = (KERNEL_K, KERNEL_WINDOW) launches a kernel
+specialised at compile time. Every other pair the plain version takes
+(1 <= k <= wh * ww, any window) launches the general kernel: the same
+scheme with the block shape from ``general_block``, the visiting order from
+``visit_order`` passed as a table, and the k smallest in registers up to
+k = 32, in shared memory above. Both count in ``launches``; the general
+kernel also in ``general_launches``.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import functools
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import _cuda
 
-# the instantiation csrc/knn_grid.cu carries (the road chain's setting)
+# the specialised kernel of csrc/knn_grid.cu (the road chain's setting)
 KERNEL_K, KERNEL_WINDOW = 10, (5, 21)
+REGISTER_MAX_K = 32  # the general kernel keeps up to this many in registers
+ROWS = 2  # vertically adjacent pixels a thread
+# the general kernel's block shapes (threads across, thread rows), largest
+# first: the first whose shared memory fits is taken
+GENERAL_BLOCKS = ((32, 8), (32, 4), (32, 2), (32, 1), (16, 1), (8, 1), (4, 1), (2, 1), (1, 1))
+SMEM_OPTIN_BYTES = 227 * 1024  # an H100's opt-in limit a block, where the card cannot say
+
+
+def visit_order(window: Tuple[int, int]) -> List[Tuple[int, int]]:
+    """The kernels' visiting order: the union of a thread's two windows as
+    (dy, dx) from its first pixel (dy in -(wh // 2) .. wh - wh // 2, dx in
+    -(ww // 2) .. ww - 1 - ww // 2), nearest to the two pixels' midpoint
+    first: key (2 dy - 1)^2 + 4 dx^2, ties by dy, then dx. The specialised
+    kernel's compile-time ``Order`` is this at (5, 21)."""
+    wh, ww = window
+    ph, pw = wh // 2, ww // 2
+    offsets = [(dy, dx) for dy in range(-ph, wh - ph + ROWS - 1) for dx in range(-pw, ww - pw)]
+    return sorted(offsets, key=lambda o: ((2 * o[0] - ROWS + 1) ** 2 + 4 * o[1] ** 2,) + o)
+
+
+@functools.lru_cache(maxsize=None)
+def _order_table(window: Tuple[int, int], device: torch.device) -> torch.Tensor:
+    """``visit_order`` packed for the kernel, one int32 (dy << 16) | (dx &
+    0xffff) an offset, on ``device``; built once per window and card."""
+    packed = [(dy << 16) | (dx & 0xFFFF) for dy, dx in visit_order(window)]
+    table = torch.tensor(packed, dtype=torch.int64).to(torch.int32)
+    return table.to(device)
+
+
+def general_block(k: int, window: Tuple[int, int], smem_limit: int = SMEM_OPTIN_BYTES):
+    """(threads across, thread rows, dynamic shared memory bytes) of the
+    general kernel's block: the first of ``GENERAL_BLOCKS`` whose float4
+    halo (2 ty + wh - 1) x (tx + ww - 1), and for k > ``REGISTER_MAX_K``
+    its buffers (2 tx ty k floats), fit in ``smem_limit`` bytes. Raises
+    ValueError, naming the limit, where not even one thread's fits."""
+    wh, ww = window
+    for tx, ty in GENERAL_BLOCKS:
+        smem = (ROWS * ty + wh - 1) * (tx + ww - 1) * 16
+        if k > REGISTER_MAX_K:
+            smem += ROWS * tx * ty * k * 4
+        if smem <= smem_limit:
+            return tx, ty, smem
+    raise ValueError(
+        f"window {tuple(window)} with k={k}: one thread's halo and buffers need {smem} bytes of "
+        f"shared memory, over the card's {smem_limit} bytes a block")
+
+
+def _smem_limit(device: torch.device) -> int:
+    props = torch.cuda.get_device_properties(device)
+    return int(getattr(props, "shared_memory_per_block_optin", SMEM_OPTIN_BYTES))
 
 
 def knn_mean_distances_grid_plain(
@@ -77,25 +136,36 @@ def _(points, valid, k, window):
 @_knn_grid_op.register_kernel("cuda")
 def _(points, valid, k, window):
     """The kernel: one launch for the batch, or raise."""
-    if (k, tuple(window)) != (KERNEL_K, KERNEL_WINDOW):
-        raise ValueError(
-            f"the CUDA kernel is built for k={KERNEL_K}, window={KERNEL_WINDOW}; "
-            f"got k={k}, window={tuple(window)}"
-        )
+    window = tuple(window)
+    wh, ww = window
+    if wh < 1 or ww < 1 or not 1 <= k <= wh * ww:
+        raise ValueError(f"need 1 <= k <= wh * ww; got k={k}, window={window}")
     if points.ndim != 4 or points.shape[-1] != 3:
         raise ValueError(f"points must be (B, H, W, 3), got {tuple(points.shape)}")
     b, h, w, _ = points.shape
+    if b > 65535:
+        raise ValueError(f"at most 65535 frames a launch, got {b}")
     _cuda.require(points, "points", torch.float32)
     _cuda.require(valid, "valid", torch.bool, (b, h, w))
     out = torch.empty((b, h, w), dtype=torch.float32, device=points.device)
     if out.numel() == 0:
         return out
     lib = _cuda.library()
-    err = lib.sd_knn_grid(
-        points.data_ptr(), valid.data_ptr(), out.data_ptr(), b, h, w, k,
-        window[0], window[1], _cuda.stream_ptr(points),
-    )
-    _cuda.check(err, "knn_mean_distances_grid")
+    if (k, window) == (KERNEL_K, KERNEL_WINDOW):
+        err = lib.sd_knn_grid(
+            points.data_ptr(), valid.data_ptr(), out.data_ptr(), b, h, w, k, wh, ww,
+            _cuda.stream_ptr(points),
+        )
+        _cuda.check(err, "knn_mean_distances_grid")
+    else:
+        tx, ty, smem = general_block(k, window, _smem_limit(points.device))
+        order = _order_table(window, points.device)
+        err = lib.sd_knn_grid_general(
+            points.data_ptr(), valid.data_ptr(), out.data_ptr(), order.data_ptr(), order.numel(),
+            b, h, w, k, wh, ww, tx, ty, smem, _cuda.stream_ptr(points),
+        )
+        _cuda.check(err, "knn_mean_distances_grid (general)")
+        knn_mean_distances_grid.general_launches += 1
     knn_mean_distances_grid.launches += 1
     return out
 
@@ -105,9 +175,11 @@ def knn_mean_distances_grid(
 ) -> torch.Tensor:
     """points (B, H, W, 3) float32, valid (B, H, W) bool -> (B, H, W)
     float32, through the op ``sd_torch::knn_grid``: CPU tensors take the
-    plain version; CUDA tensors launch the kernel (one launch for the
-    batch, counted in ``launches``) or raise."""
+    plain version; CUDA tensors launch a kernel (one launch for the batch,
+    counted in ``launches``; the general kernel's also in
+    ``general_launches``) or raise."""
     return _knn_grid_op(points, valid, k, list(window))
 
 
 knn_mean_distances_grid.launches = 0
+knn_mean_distances_grid.general_launches = 0

@@ -126,7 +126,10 @@ def recording_kernel_calls():
             store.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
             return fn(*args, **kw)
 
-        rec.launches = fn.launches  # the wrapper counts through its module-level name
+        # the wrapper counts through its module-level name
+        for counter in ("launches", "general_launches", "large_k_launches"):
+            if hasattr(fn, counter):
+                setattr(rec, counter, getattr(fn, counter))
         return rec
 
     with _wrapped(_WRAPPERS.values(), wrap):

@@ -227,6 +227,37 @@ def test_a_run_cut_by_its_deadline_is_parked_and_raises(tmp_path, monkeypatch):
         ttool.ensure_bench_weights(str(tmp_path), deadline=time.time() - 1, device="cpu")
 
 
+@pytest.mark.parametrize("kw, suffix", [(dict(full_res=True), "_fullres"),
+                                        (dict(native=True), "_native")])
+def test_the_full_res_and_native_estimates_refuse_a_budget_they_do_not_fit(tmp_path, kw,
+                                                                        suffix):
+    """The measured full-res and native estimates: a budget a second short
+    of the set's FCN-8s estimate refuses to start it (its warm start cached),
+    and one a minute past it starts it."""
+    est_fcn, est_mono = ttool._EST_TRAIN_S[suffix]
+    assert est_fcn > 0 and est_mono > 0
+    base = ttool.bench_weight_paths(str(tmp_path), full_res=suffix == "_native")
+    if suffix == "_native":
+        base += ttool.bench_weight_paths(str(tmp_path))
+    for p in base:  # the warm starts, cached
+        tweights.save_params({"params": {"x": {"bias": np.zeros(1, np.float32)}}}, p)
+    with pytest.raises(TimeoutError, match=f"FCN-8s{suffix} training .*does not fit"):
+        ttool.ensure_bench_weights(str(tmp_path), deadline=time.time() + est_fcn - 1,
+                                   device="cpu", **kw)
+    started = []
+
+    def fake_train(*a, **k):
+        started.append(k["input_s2d"])
+        raise RuntimeError("started")
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ttool, "train_fcn", fake_train)
+        with pytest.raises(RuntimeError, match="started"):
+            ttool.ensure_bench_weights(str(tmp_path), deadline=time.time() + est_fcn + 60,
+                                       device="cpu", **kw)
+    assert started == [suffix == "_native"]
+
+
 def test_a_cached_set_is_reused_without_training(tmp_path, monkeypatch):
     def boom(*a, **k):
         raise AssertionError("a cached set must not train")

@@ -64,6 +64,55 @@ def test_knn_grid_kernel_bit_equal_with_valid_inf_points(cuda):
     assert torch.equal(got.nan_to_num(), want.nan_to_num())
 
 
+def _k1_general_grids(cuda, h=64, w=160):
+    """(3, h, w) grids: an analytic scene's road with 15% punched out, the
+    same scene with zero-disparity patches (valid +-inf and nan points) and
+    random points 30% valid."""
+    cfg = config.munich_pipeline_config(input_height=h, input_width=w)
+    disp = torch.from_numpy(scene_pool(1, h, w, seed=2)[2] * np.float32(2048.0 * w / 512.0))
+    labels = scene_pool(1, h, w, seed=2)[1]
+    pts = camera.reproject_disparity(disp, cfg.camera)[0]
+    rng = np.random.default_rng(9)
+    road = torch.from_numpy((labels[0] == 7) & (rng.random((h, w)) >= 0.15))
+    zero = disp.clone()
+    zero[0, 5:12, 10:40] = 0.0
+    inf_pts = camera.reproject_disparity(zero, cfg.camera)[0]
+    inf_valid = torch.ones((h, w), dtype=torch.bool)
+    inf_valid[::3, 1::4] = False
+    rnd = torch.from_numpy((rng.normal(size=(h, w, 3)) * [2.0, 0.3, 5.0]).astype(np.float32))
+    rnd_valid = torch.from_numpy(rng.random((h, w)) < 0.3)
+    return (torch.stack([pts, inf_pts, rnd]).contiguous().to(cuda),
+            torch.stack([road, inf_valid, rnd_valid]).contiguous().to(cuda))
+
+
+@pytest.mark.parametrize("k, window", [(20, (5, 21)), (10, (7, 21)), (10, (5, 31)),
+                                       (10, (7, 31)), (6, (4, 20)), (40, (9, 33)), (64, (9, 9)),
+                                       (1, (1, 1)), (3, (2, 2)), (33, (5, 11))])
+def test_knn_grid_general_kernel_bit_equal(cuda, k, window):
+    """Every (k, window) but the road chain's takes the general kernel
+    (registers up to k = 32, shared memory above; odd and even windows);
+    bit-equal to the plain version, nan and +inf patterns included."""
+    pts, valid = _k1_general_grids(cuda)
+    fn = knn_grid.knn_mean_distances_grid
+    launches, general = fn.launches, fn.general_launches
+    got = fn(pts, valid, k, window)
+    assert (fn.launches, fn.general_launches) == (launches + 1, general + 1)
+    want = knn_grid.knn_mean_distances_grid_plain(pts, valid, k, window)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    assert bool(torch.isfinite(want[valid]).any())
+
+
+def test_knn_grid_road_chain_setting_keeps_the_specialised_kernel(cuda):
+    pts, valid = _k1_general_grids(cuda)
+    fn = knn_grid.knn_mean_distances_grid
+    general = fn.general_launches
+    got = fn(pts, valid, knn_grid.KERNEL_K, knn_grid.KERNEL_WINDOW)
+    assert fn.general_launches == general
+    assert _equal_nan(got, knn_grid.knn_mean_distances_grid_plain(
+        pts, valid, knn_grid.KERNEL_K, knn_grid.KERNEL_WINDOW))
+
+
 def test_mad_kernel_matches_plain_bit_equal(cuda):
     rng = np.random.default_rng(2)
     n = 131072
@@ -244,6 +293,21 @@ def test_exact_knn_kernel_matches_plain_bit_equal(cuda, k):
     assert torch.equal(got.cpu(), exact_knn.knn_mean_distances_exact_plain(x.cpu(), v.cpu(), k))
 
 
+@pytest.mark.parametrize("k", [33, 50, 100])
+def test_exact_knn_large_k_bit_equal(cuda, k):
+    """k > 32 takes the large-k kernel: bit-equal to the plain version with
+    its box skip and without, on the edge frames (fewer valid points than
+    k among them) and the exact mode's road clouds."""
+    fn = exact_knn.knn_mean_distances_exact
+    for xyz, valid in ((torch.from_numpy(a).to(cuda) for a in _exact_knn_frames()),
+                       k4.road_clouds(4, 256, 512, 16384, cuda)):
+        want = exact_knn.knn_mean_distances_exact_plain(xyz, valid, k)
+        large = fn.large_k_launches
+        assert torch.equal(fn(xyz, valid, k), want)
+        assert torch.equal(fn(xyz, valid, k, skip=False), want)
+        assert fn.large_k_launches == large + 2
+
+
 def _scene_cloud(cuda):
     """(1, 131072): every point of an analytic 256x512 scene, 1% of the rows
     replaced by uniform outliers in a box around it."""
@@ -319,8 +383,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     v = torch.ones((1, 32, 64), dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError):
         knn_grid.knn_mean_distances_grid(p.double(), v, 10)
-    with pytest.raises(ValueError):
-        knn_grid.knn_mean_distances_grid(p, v, 5)  # no such instantiation
+    for k, window in ((0, (5, 21)), (106, (5, 21)), (10, (0, 21))):
+        with pytest.raises(ValueError):  # k outside 1 .. wh * ww
+            knn_grid.knn_mean_distances_grid(p, v, k, window)
+    with pytest.raises(ValueError, match="shared memory"):  # no block's halo fits
+        knn_grid.knn_mean_distances_grid(p, v, 10, (301, 301))
     with pytest.raises(ValueError):
         knn_grid.knn_mean_distances_grid(p.transpose(1, 2).contiguous().transpose(1, 2), v, 10)
     vals = torch.zeros((2, 1024), device=cuda)
@@ -346,9 +413,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                              torch.ones((1, 128), dtype=torch.float64, device=cuda), 0.5)
     x = torch.zeros((1, 100, 3), device=cuda)
     ok = torch.ones((1, 100), dtype=torch.bool, device=cuda)
-    for k in (0, exact_knn.KERNEL_MAX_K + 1):
-        with pytest.raises(ValueError):
-            exact_knn.knn_mean_distances_exact(x, ok, k)
+    with pytest.raises(ValueError):
+        exact_knn.knn_mean_distances_exact(x, ok, 0)
+    # past the register walks' k = 32 the large-k kernel computes
+    assert torch.equal(exact_knn.knn_mean_distances_exact(x, ok, 33),
+                       exact_knn.knn_mean_distances_exact_plain(x, ok, 33))
     with pytest.raises(ValueError):
         exact_knn.knn_mean_distances_exact(x.double(), ok, 10)
     with pytest.raises(ValueError):

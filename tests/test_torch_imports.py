@@ -11,6 +11,9 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "semantic_depth_tpu_torch"
 _BANNED_ROOTS = {"jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "matplotlib"}
+# the counterparts of the JAX package's offline tools
+_NEW_TOOLS = ("pin_window_torch.py", "train_monodepth_synth_torch.py", "profile_blocks_torch.py",
+              "profile_pipeline_stages_torch.py", "native_mae_curve_torch.py")
 
 
 def _banned(module: str) -> bool:
@@ -30,7 +33,7 @@ def _imports(path: Path):
 def test_port_sources_import_no_jax_and_no_jax_package():
     tools = [REPO / "tools" / name for name in ("profile_torch_port.py", "time_mad_radius.py",
                                                 "time_knn.py", "knn_variants.py",
-                                                "train_bench_weights_torch.py")]
+                                                "train_bench_weights_torch.py") + _NEW_TOOLS]
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + tools
     assert len(files) > 10
     assert {"comm.py", "mesh.py", "spatial.py", "inference.py", "pp.py", "launch.py",
@@ -67,7 +70,9 @@ def test_importing_the_port_loads_no_jax_package_module():
         "semantic_depth_tpu_torch.parallel.inference, "
         "semantic_depth_tpu_torch.parallel.pp, semantic_depth_tpu_torch.parallel.launch, "
         "semantic_depth_tpu_torch.parallel.train_step, "
-        "semantic_depth_tpu_torch.models.tensor_parallel, tools.train_bench_weights_torch; "
+        "semantic_depth_tpu_torch.models.tensor_parallel, tools.train_bench_weights_torch, "
+        "tools.pin_window_torch, tools.train_monodepth_synth_torch, tools.profile_blocks_torch, "
+        "tools.profile_pipeline_stages_torch, tools.native_mae_curve_torch; "
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('semantic_depth_tpu', 'flax', 'optax', 'orbax', 'msgpack', 'matplotlib'))))"
     )

@@ -421,26 +421,38 @@ def test_subtile_boxes_against_numpy():
 # --- K1: near-first order, early reject, folded valid flags -------------------
 
 _K1_BLOCK = (16, 32)  # csrc/knn_grid.cu: pixel rows and columns of a block
+# the general kernel's cases: odd and even windows, k in registers and above
+_K1_GENERAL = [(20, (7, 31)), (6, (4, 20)), (40, (9, 33)), (3, (2, 2))]
 
 
 def _k1_order(window=(5, 21), rows=2):
-    """csrc/knn_grid.cu's ``Order``: the union of a thread's two windows as
-    (dy, dx) from its first pixel, nearest to the pixels' midpoint first
-    (key (2 dy - 1)^2 + 4 dx^2, ties by dy, then dx)."""
+    """csrc/knn_grid.cu's ``Order``, written out: the union of a thread's two
+    windows as (dy, dx) from its first pixel, nearest to the pixels'
+    midpoint first (key (2 dy - 1)^2 + 4 dx^2, ties by dy, then dx)."""
     wh, ww = window
-    offsets = [(dy, dx) for dy in range(-(wh // 2), wh // 2 + rows)
-               for dx in range(-(ww // 2), ww // 2 + 1)]
+    offsets = [(dy, dx) for dy in range(-(wh // 2), wh - wh // 2 + rows - 1)
+               for dx in range(-(ww // 2), ww - ww // 2)]
     return sorted(offsets, key=lambda o: (2 * o[0] - rows + 1) ** 2 + 4 * o[1] ** 2)
 
 
+def _k1_block(k, window):
+    """The pixel rows and columns of a block of the kernel that serves
+    (k, window): the specialised kernel's, or ``general_block``'s."""
+    if (k, tuple(window)) == (knn_grid.KERNEL_K, knn_grid.KERNEL_WINDOW):
+        return _K1_BLOCK
+    tx, ty, _ = knn_grid.general_block(k, window)
+    return knn_grid.ROWS * ty, tx
+
+
 def _k1_emulate(points, valid, k=10, window=(5, 21)):
-    """K1's schedule: each pixel takes the offsets of ``_k1_order`` that fall
-    in its window (its parity is its row in the thread), each distance
-    rejected by one compare against buf[k-1] or inserted. Blocks whose halo
-    holds no valid point with a coordinate that is not finite add w (0 or
-    +inf) to each distance; the others skip invalid candidates, count nan
-    distances, and give nan when fewer than k of the window's values are
-    not nan."""
+    """K1's schedule: each pixel takes the offsets of ``visit_order`` (the
+    table the wrapper builds; the specialised kernel's compile-time order
+    at (5, 21)) that fall in its window (its parity is its row in the
+    thread), each distance rejected by one compare against buf[k-1] or
+    inserted. Blocks (``_k1_block``) whose halo holds no valid point with a
+    coordinate that is not finite add w (0 or +inf) to each distance; the
+    others skip invalid candidates, count nan distances, and give nan when
+    fewer than k of the window's values are not nan."""
     b, h, w = valid.shape
     wh, ww = window
     ph, pw = wh // 2, ww // 2
@@ -448,8 +460,8 @@ def _k1_emulate(points, valid, k=10, window=(5, 21)):
     pad_pts = F.pad(pts, (0, 0, pw, pw, ph, ph))
     pad_valid = F.pad(valid, (pw, pw, ph, ph))
     bad = valid & ~torch.isfinite(points).all(-1)
-    near_bad = F.max_pool2d(bad.float()[:, None], (wh, ww), 1, (ph, pw))[:, 0] > 0
-    bh, bw = _K1_BLOCK
+    near_bad = F.max_pool2d(bad.float()[:, None], (wh, ww), 1, (ph, pw))[:, 0, :h, :w] > 0
+    bh, bw = _k1_block(k, window)
     nb_h, nb_w = -(-h // bh), -(-w // bw)
     flag = F.pad(near_bad, (0, nb_w * bw - w, 0, nb_h * bh - h)).reshape(
         b, nb_h, bh, nb_w, bw).any(4).any(2)
@@ -458,10 +470,10 @@ def _k1_emulate(points, valid, k=10, window=(5, 21)):
     cx, cy, cz = pts.unbind(-1)
     buf = torch.full((b, h, w, k), float("inf"))
     n_nan = torch.zeros((b, h, w), dtype=torch.long)
-    for dy, dx in _k1_order(window):
+    for dy, dx in knn_grid.visit_order(window):
         for r in (0, 1):
             ry = dy - r
-            if not -ph <= ry <= ph:
+            if not -ph <= ry <= wh - 1 - ph:
                 continue
             sx, sy, sz = pad_pts[:, ph + ry:ph + ry + h, pw + dx:pw + dx + w].unbind(-1)
             sv = pad_valid[:, ph + ry:ph + ry + h, pw + dx:pw + dx + w]
@@ -521,15 +533,48 @@ def test_k1_near_first_order_with_early_reject_is_bit_equal():
     assert bool(want[1].isnan().any()) and bool(torch.isfinite(want[1]).any())
 
 
-def test_k1_order_is_the_union_of_both_windows_nearest_first():
-    order = _k1_order()
-    assert len(order) == len(set(order)) == 6 * 21
-    assert order[:2] == [(0, 0), (1, 0)]  # the two pixels themselves
+@pytest.mark.parametrize("k, window", _K1_GENERAL)
+def test_k1_general_kernel_schedule_is_bit_equal(k, window):
+    """The general kernel's schedule: the host-built order table, its block
+    shape's exact-path blocks, and the k smallest of its buffers."""
+    points, valid = _k1_grids()
+    want = knn_grid.knn_mean_distances_grid_plain(points, valid, k, window)
+    got = _k1_emulate(points, valid, k, window)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    assert bool(torch.isfinite(want[valid]).any())
+
+
+@pytest.mark.parametrize("window", [(5, 21)] + [w for _, w in _K1_GENERAL] + [(1, 1), (6, 7)])
+def test_k1_order_is_the_union_of_both_windows_nearest_first(window):
+    """The wrapper's table is the specialised kernel's compile-time order at
+    (5, 21) and the same rule elsewhere: each pixel's own window, once each,
+    nearest to the thread's two pixels first; packed as the kernel reads it."""
+    wh, ww = window
+    ph, pw = wh // 2, ww // 2
+    order = knn_grid.visit_order(window)
+    assert order == _k1_order(window)
+    assert len(order) == len(set(order)) == (wh + 1) * ww
+    assert order[:2] == [(0, 0), (1, 0)] or wh == 1 and order[0] == (0, 0)
     keys = [(2 * dy - 1) ** 2 + 4 * dx * dx for dy, dx in order]
     assert keys == sorted(keys)
-    for r in (0, 1):  # each pixel's own 5 x 21 window, once each
-        mine = [(dy - r, dx) for dy, dx in order if -2 <= dy - r <= 2]
-        assert sorted(mine) == [(y, x) for y in range(-2, 3) for x in range(-10, 11)]
+    for r in (0, 1):  # each pixel's own wh x ww window, once each
+        mine = [(dy - r, dx) for dy, dx in order if -ph <= dy - r <= wh - 1 - ph]
+        assert sorted(mine) == [(y, x) for y in range(-ph, wh - ph) for x in range(-pw, ww - pw)]
+    table = knn_grid._order_table(tuple(window), torch.device("cpu")).tolist()
+    assert [(e >> 16, (e & 0xFFFF) - ((e & 0x8000) << 1)) for e in table] == order
+
+
+def test_k1_general_block_fits_the_shared_memory_or_raises():
+    """The largest block whose halo (and, past k = 32, buffers) fits; a
+    window no block's halo fits raises, naming the limit."""
+    assert knn_grid.general_block(10, (7, 31)) == (32, 8, (16 + 6) * (32 + 30) * 16)
+    tx, ty, smem = knn_grid.general_block(100, (9, 33))
+    assert smem == (2 * ty + 8) * (tx + 32) * 16 + 2 * tx * ty * 100 * 4 <= 227 * 1024
+    assert (tx, ty) == (32, 8)
+    assert knn_grid.general_block(10, (61, 211))[:2] == (16, 1)  # (32, 1): 240064 bytes
+    with pytest.raises(ValueError, match="232448 bytes"):
+        knn_grid.general_block(10, (301, 301))
 
 
 # --- the measured variants and K4's bound ------------------------------------
@@ -570,3 +615,22 @@ def test_exact_knn_bound_reads_the_inputs_alone():
     assert needed == 600 * 10 + 4 * 4 and pairs_all == 600 ** 2 + 4 ** 2
     assert by == "bytes" and ms == 2 * 1000 * 17 / smoke._HBM_BYTES_PER_S * 1e3
     assert ms_all > ms
+
+
+@pytest.mark.parametrize("k, window", [(10, (5, 21)), (20, (7, 31)), (6, (4, 20))])
+def test_knn_grid_bound_counts_what_the_function_needs(k, window):
+    """chip_smoke.py's K1 bound: 9 operations for each (valid pixel, valid
+    candidate) pair of the window, JAX's offsets for an even one, whatever
+    k is, and 2k + 1 for each valid pixel with at least k candidates."""
+    smoke = _load(REPO / "chip_smoke.py")
+    smoke._HBM_BYTES_PER_S = float("inf")  # the operations alone
+    valid = np.random.default_rng(k).random((2, 12, 40)) < 0.5
+    (wh, ww), pairs, full = window, 0, 0
+    for b, i, j in zip(*np.nonzero(valid)):
+        n = int(valid[b, max(i - wh // 2, 0):i - wh // 2 + wh,
+                      max(j - ww // 2, 0):j - ww // 2 + ww].sum())
+        pairs, full = pairs + n, full + (n >= k)
+    ms, by = smoke.knn_grid_bound(torch.from_numpy(valid), k, window)
+    assert by == "operations" and full > 0
+    assert ms == pytest.approx((9 * pairs + (2 * k + 1) * full) / smoke._FP32_FLOPS * 1e3,
+                               rel=1e-12)

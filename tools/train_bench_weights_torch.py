@@ -55,12 +55,16 @@ FCN_NATIVE_PHASES = [(FULL_HW, 24, 4, 2200)]
 MONO_NATIVE_PHASES = [(FULL_HW, 24, 4, 3200)]
 
 # Wall-clock estimates (s) of a (FCN-8s, monodepth) training by set suffix,
-# for the budget check of ``ensure_bench_weights``. The headline set's are
-# one run's loops rounded up (2400 x 101.7 ms and 8000 x 46.8 ms, the set
-# ready in 645 s, on an NVIDIA H100 80GB HBM3 at 700.00 W); the full-res and
-# native sets are not measured, so their check refuses only once the
-# deadline has passed.
-_EST_TRAIN_S = {"": (260, 390), "_fullres": (0, 0), "_native": (0, 0)}
+# for the budget check of ``ensure_bench_weights``, each the recipe's steps
+# times a measured median step, rounded up, on an NVIDIA H100 80GB HBM3 at
+# 700.00 W. Headline: one run's loops (2400 x 101.7 ms and 8000 x 46.8 ms, the
+# set ready in 645 s). Full-res and native: the larger of two runs of
+# ``chip_smoke.py`` phase 13's 4 steps at 1024x2048 (800 x 435.9 ms and 800 x
+# 180.0 ms at batch 2; 2200 x 214.5 ms and 3200 x 1005.4 ms at batch 4, the
+# last 804.5 ms in the other run, most of it monodepth's float32 FFT
+# convolutions in dec4); rendering the scene pools and writing the sets come
+# on top.
+_EST_TRAIN_S = {"": (260, 390), "_fullres": (350, 150), "_native": (480, 3220)}
 
 
 def _graft(template, src):
@@ -147,12 +151,14 @@ def _pool2(x):
 
 
 def _run(name, net, phases, tensors, step_fn, lr, seed_rng, log, hook, hook_every, deadline,
-         log_every, digits):
+         log_every, digits, step_times=None):
     """The training loop both networks share: ``tensors(hw, n)`` puts a
     phase's pool on the device, ``step_fn(pool, idx, flip)`` returns the
     loss of one batch; the index and flip draws come from
     ``default_rng(seed_rng)``, the loss is logged every ``log_every`` steps
-    with ``digits`` decimals. Returns (flax-layout params, truncated)."""
+    with ``digits`` decimals. ``step_times`` (a list): each step's seconds
+    are appended, the device synchronised after each step (a hook's time
+    left out). Returns (flax-layout params, truncated)."""
     import torch
 
     from semantic_depth_tpu_torch.models.from_flax import flax_from_module
@@ -166,6 +172,7 @@ def _run(name, net, phases, tensors, step_fn, lr, seed_rng, log, hook, hook_ever
         pool = tensors(hw, n)
         t0 = time.time()
         for i in range(steps):
+            t_step = time.perf_counter()
             idx = torch.as_tensor(rng.integers(0, n, size=batch), device=dev)
             flip = torch.as_tensor(rng.integers(0, 2, size=batch).astype(bool), device=dev)
             for group in opt.param_groups:
@@ -175,6 +182,10 @@ def _run(name, net, phases, tensors, step_fn, lr, seed_rng, log, hook, hook_ever
             loss.backward()
             opt.step()
             done += 1
+            if step_times is not None:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                step_times.append(time.perf_counter() - t_step)
             if i % log_every == 0 or i == steps - 1:
                 log(f"  {name} ph{pi} {hw} step {i}: loss {loss.item():.{digits}f} "
                     f"({time.time() - t0:.0f}s)")
@@ -188,13 +199,14 @@ def _run(name, net, phases, tensors, step_fn, lr, seed_rng, log, hook, hook_ever
 
 def train_fcn(phases=FCN_PHASES, *, width_mult=1.0, fc_channels=4096, lr=1e-4, seed=0,
               init_params=None, input_s2d=False, log=print, hook=None, hook_every=0,
-              deadline=None, device=None):
+              deadline=None, device=None, step_times=None):
     """Supervised FCN-8s training over ``phases``, warm-started from
     ``init_params`` where given (grafted for ``input_s2d``).
     ``hook(params, step)`` fires every ``hook_every`` steps and at a phase's
-    end; ``deadline`` (a ``time.time()`` value) stops early. Returns
-    (flax-layout params, truncated): truncated parameters are under-trained
-    and must not be cached as a finished set."""
+    end; ``deadline`` (a ``time.time()`` value) stops early; ``step_times``
+    (a list) receives each step's seconds. Returns (flax-layout params,
+    truncated): truncated parameters are under-trained and must not be
+    cached as a finished set."""
     import torch
 
     from semantic_depth_tpu_torch.models import FCN8s
@@ -222,12 +234,12 @@ def train_fcn(phases=FCN_PHASES, *, width_mult=1.0, fc_channels=4096, lr=1e-4, s
         return fcn_loss(net, x, y)
 
     return _run("fcn", net, phases, tensors, step, lr, seed, log, hook, hook_every, deadline,
-                100, 4)
+                100, 4, step_times)
 
 
 def train_mono(phases=MONO_PHASES, *, encoder="vgg", width_mult=1.0, lr=1e-4, seed=0,
                road_weight=4.0, init_params=None, input_s2d=False, log=print, hook=None,
-               hook_every=0, deadline=None, device=None):
+               hook_every=0, deadline=None, device=None, step_times=None):
     """Supervised monodepth over ``phases`` (see the module's docstring);
     arguments and result as ``train_fcn``'s."""
     import torch
@@ -259,7 +271,7 @@ def train_mono(phases=MONO_PHASES, *, encoder="vgg", width_mult=1.0, lr=1e-4, se
         return mono_loss(mono, x, _flip(disps[idx], flip), _flip(wm, flip))
 
     return _run("mono", mono, phases, tensors, step, lr, seed + 2, log, hook, hook_every,
-                deadline, 250, 6)
+                deadline, 250, 6, step_times)
 
 
 def bench_weight_paths(out_dir=".bench_weights", full_res=False, native=False):
@@ -272,7 +284,7 @@ def bench_weight_paths(out_dir=".bench_weights", full_res=False, native=False):
 
 def ensure_bench_weights(out_dir=".bench_weights", seed=0, width_mult=1.0, fc_channels=4096,
                          fcn_phases=None, mono_phases=None, full_res=False, native=False,
-                         force=False, log=print, deadline=None, device=None):
+                         force=False, log=print, deadline=None, device=None, step_times=None):
     """Return (fcn_msgpack, mono_msgpack) paths, training and caching a set
     that is absent.
 
@@ -284,7 +296,9 @@ def ensure_bench_weights(out_dir=".bench_weights", seed=0, width_mult=1.0, fc_ch
 
     deadline (a ``time.time()`` value): raise TimeoutError rather than start
     a training estimated not to finish by then (``_EST_TRAIN_S``); a running
-    training stops at the deadline, is parked at ``*.partial`` and raises."""
+    training stops at the deadline, is parked at ``*.partial`` and raises.
+    ``step_times`` (a dict): each training this call runs appends its steps'
+    seconds under ``"fcn<suffix>"`` / ``"monodepth<suffix>"``."""
     from semantic_depth_tpu_torch.models import weights as weights_lib
 
     os.makedirs(out_dir, exist_ok=True)
@@ -310,7 +324,7 @@ def ensure_bench_weights(out_dir=".bench_weights", seed=0, width_mult=1.0, fc_ch
         # itself starts from the headline set
         base_fcn, base_mono = ensure_bench_weights(
             out_dir, seed=seed, width_mult=width_mult, fc_channels=fc_channels,
-            full_res=native, log=log, deadline=deadline, device=device)
+            full_res=native, log=log, deadline=deadline, device=device, step_times=step_times)
         fcn_init = weights_lib.load_params(base_fcn)
         mono_init = weights_lib.load_params(base_mono)
         if native:
@@ -339,7 +353,8 @@ def ensure_bench_weights(out_dir=".bench_weights", seed=0, width_mult=1.0, fc_ch
         log(f"training FCN-8s{suffix} ...")
         save_or_reject(train_fcn(fcn_ph, width_mult=width_mult, fc_channels=fc_channels,
                                  seed=seed, init_params=fcn_init, input_s2d=native, lr=lr,
-                                 log=log, deadline=deadline, device=device),
+                                 log=log, deadline=deadline, device=device,
+                                 step_times=_times(step_times, f"fcn{suffix}")),
                        fcn_path, f"FCN-8s{suffix}")
     fcn_init = None
     _release(device)
@@ -348,10 +363,16 @@ def ensure_bench_weights(out_dir=".bench_weights", seed=0, width_mult=1.0, fc_ch
         log(f"training monodepth{suffix} ...")
         save_or_reject(train_mono(mono_ph, width_mult=width_mult, seed=seed,
                                   init_params=mono_init, input_s2d=native, lr=lr, log=log,
-                                  deadline=deadline, device=device),
+                                  deadline=deadline, device=device,
+                                  step_times=_times(step_times, f"monodepth{suffix}")),
                        mono_path, f"monodepth{suffix}")
     _release(device)
     return fcn_path, mono_path
+
+
+def _times(step_times, key):
+    """The list under ``key`` of a ``step_times`` dict, or None."""
+    return None if step_times is None else step_times.setdefault(key, [])
 
 
 def _release(device):
