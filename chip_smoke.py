@@ -88,7 +88,13 @@ either is missing or any check fails. Phases:
    ``utils.video`` writing them as an mp4 that ``cli.segment_video`` reads
    back (8 frames), ``render_points`` of the phase-3 scene cloud equal on
    the card and the CPU, and one ``process_batch`` under ``runtime.trace``
-   whose trace holds its ``annotate`` span and kernel events;
+   whose trace holds its ``annotate`` span and kernel events; (f) the
+   fence chain on real points: stand-in networks (``SceneFCN``,
+   ``SceneMono``) give 8 bench scenes' analytic logits and disparity, and
+   a batched program in bfloat16 grid mode and in float32 exact mode gives
+   a finite ``dist_f2f`` on every frame within 1e-4 m of live
+   ``process_batch`` and 1e-3 m of the scenes' f2f_true (launches inside
+   each program);
 11. multi-device serving (``parallel/``) with two ranks sharing the card
    (``parallel.launch.run_ranks``, gloo), full width, seeded weights, the 8
    scene frames, deterministic cuDNN and TF32 off in every rank: (a) dp=2,
@@ -98,9 +104,17 @@ either is missing or any check fails. Phases:
    ``process_batch`` on every FrameOutputs field, the gathered outputs the
    same on both ranks; (c) sp=2 float32 ``process_frame`` within the JAX sp
    test's tolerances (disparity 1e-5, dist_rw 1e-4, nan pattern equal),
-   and sp=2 on the native bfloat16 network (largest disparity difference
-   and mask agreement printed); K1-K4 launches counted on each rank against
-   each case's expected counts; frames/s (ms per frame for sp) against the
+   and sp=2 on the native bfloat16 network, gated at bfloat16's own
+   rounding (``sp_bf16_gate``): with E the unsharded bfloat16 network's
+   largest disparity difference from float32 (same seeded weights, same
+   frame, this run), sp within 1.5 E of float32 and 2 E of the unsharded
+   bfloat16 network, its road mask disagreement at most twice the
+   bfloat16-against-float32 one; the same sp with its halo rows zeroed
+   must fail that gate; (f) the fence chain
+   with one stand-in scene on every frame, dp=2 live and a sharded frozen
+   program (dp=2), ``dist_f2f`` finite on every frame, within 1e-4 m of
+   the single process and 1e-3 m of the scenes' f2f_true; K1-K4 launches counted on each rank against each
+   case's expected counts; frames/s (ms per frame for sp) against the
    single process, and the collectives' bytes and ms; which collectives
    gloo takes on CUDA tensors (information); (e) one rank over NCCL (world
    size 1, dp=1): outputs equal ``process_batch``, the collectives exact;
@@ -138,7 +152,19 @@ either is missing or any check fails. Phases:
    ``tools/profile_blocks_torch.py`` call (float32 and bfloat16, the
    longest kernels of each block); (h) ``tools/native_mae_curve_torch.py``
    at 4 full-width steps a network, one eval point on 4 scenes, in a
-   temporary directory, with each training's seconds a step at 1024x2048.
+   temporary directory, with each training's seconds a step at 1024x2048;
+14. K2 and K3 at every shape the JAX package takes: (a) K3 at capacities
+   1, 100, 1000 and 16383 (padded to its 128-candidate tiles), ones and
+   dyadic weights, skip on and off, bit-equal; non-dyadic weights at 1000
+   the same on three runs and within rtol 1e-4; 65537 frames in two
+   launches; (b) K2 at row lengths 1, 3, 1022, 1025 and 2^21 + 3 (streamed),
+   a view 4 bytes into its storage and 65538 rows (two launches), each
+   bit-equal; (c) ``process_batch`` at ``neighbor_capacity=1000`` with the
+   stand-in networks in grid and exact mode, within 1e-3 m of the CPU port,
+   the default launches and one padded call (K3's), and at the default
+   capacity no padded call; the padded launches' wrapper, plain and bound
+   ms, and phase 5's bfloat16 frames/s beside the rate recorded before
+   the padding (358.13, PERF.md).
 
 The second-to-last lines are the card's name and power limit and one JSON
 object with the kernels' numbers (``frozen_launches``: phase 10's programs';
@@ -152,6 +178,7 @@ the last line is
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import os
@@ -493,6 +520,8 @@ def radius_pairs(xyz, valid, r):
         hi = torch.searchsorted(zs, zs + zthr[f], right=True)
         needed += int((hi - lo).sum())
     b, c = valid.shape
+    if c % 128:  # the block rule counts whole 128-candidate tiles
+        return float(needed), float("nan")
     fill = z.gather(1, valid.int().argmax(-1)[:, None])
     qz = torch.where(valid, z, fill).reshape(b, -1, 128)
     vb = valid.reshape(b, -1, 128)
@@ -753,6 +782,93 @@ def full_pipeline(dev, dtype_name, stat_mode, encoder="vgg"):
         torch.manual_seed(1)
         mono = Monodepth(encoder=cfg.monodepth.encoder, compute_dtype=dtype)
     return pipeline.SemanticDepthPipeline(cfg, fcn, mono, device=dev)
+
+
+class SceneFCN(torch.nn.Module):
+    """Stand-in for FCN-8s (phases 10, 11, 14): the analytic class logits of
+    ``n`` bench scenes (+8 on the true class of road, fence, background),
+    frame i of a batch getting scene i, or every frame the one scene when
+    ``n`` is 1 (a dp shard then sees what the whole batch sees). Seeded random networks put no pixel
+    on the fence; these put every true road and fence pixel there, so the
+    fence chain (f2f) runs on real points."""
+
+    def __init__(self, labels):
+        super().__init__()
+        lab = torch.from_numpy(labels)
+        onehot = torch.stack([lab == 7, lab == 13, (lab != 7) & (lab != 13)], -1)
+        self.register_buffer("logits", onehot.float() * 8.0)
+
+    def forward(self, images, rows=None):
+        if rows is not None:
+            raise ValueError("the stand-in networks have no row-sharded form")
+        return _take(self.logits, images.shape[0])
+
+
+class SceneMono(torch.nn.Module):
+    """Stand-in for monodepth: the scenes' normalised disparity; on the flip
+    batch (the B frames, then their mirrors) the second half is the mirror,
+    so the flip blend gives the scene's disparity back."""
+
+    def __init__(self, disp_norm, flip):
+        super().__init__()
+        self.register_buffer("disp", torch.from_numpy(disp_norm))
+        self.flip = flip
+
+    def disp_left(self, images, rows=None):
+        if rows is not None:
+            raise ValueError("the stand-in networks have no row-sharded form")
+        if not self.flip:
+            return _take(self.disp, images.shape[0])
+        d = _take(self.disp, images.shape[0] // 2)
+        return torch.cat([d, d.flip(-1)])
+
+
+def _take(scenes, b):
+    """The first ``b`` scenes, or the one scene ``b`` times."""
+    return scenes.expand(b, *scenes.shape[1:]) if scenes.shape[0] == 1 else scenes[:b]
+
+
+def scene_pipeline(dev, dtype_name="bfloat16", stat_mode="grid", capacity=None, n=8, seed=0):
+    """``munich_pipeline_config`` with the stand-in networks of ``n`` bench
+    scenes at 256x512 (seed ``seed``, phase 3's scenes); served on 1024x2048
+    frames at the config's focal and a multiplier of 2048 it measures those
+    scenes. Returns (pipeline, (focal, multiplier), f2f_true)."""
+    from semantic_depth_tpu_torch import config, pipeline
+    from semantic_depth_tpu_torch.utils.bench_scenes import scene_pool
+
+    cfg = (exact_config if stat_mode == "exact" else config.munich_pipeline_config)(
+        compute_dtype=dtype_name)
+    if capacity is not None:
+        cfg = dataclasses.replace(cfg, road=dataclasses.replace(cfg.road,
+                                                                neighbor_capacity=capacity))
+    _, labels, disp_norm, _, f2f_true = scene_pool(n, cfg.input_height, cfg.input_width,
+                                                   seed=seed)
+    pipe = pipeline.SemanticDepthPipeline(
+        cfg, SceneFCN(labels), SceneMono(disp_norm, cfg.monodepth.flip_average), device=dev)
+    return pipe, (cfg.camera.focal, 2048.0), f2f_true
+
+
+# |dist_f2f - f2f_true| on the stand-in scenes: 2.2e-4 m at most on an H100
+# (PERF.md §6); the card's own limit against the CPU port is also 1e-3 m
+F2F_TRUE_LIMIT_M = 1e-3
+
+
+def fence_gate(label, f2f, live_f2f, f2f_true):
+    """dist_f2f finite on every frame, within 1e-4 m of live
+    ``process_batch`` and within ``F2F_TRUE_LIMIT_M`` of the scenes'
+    analytic f2f_true (the side that does not run the port)."""
+    f2f, live = np.asarray(f2f, np.float64), np.asarray(live_f2f, np.float64)
+    check(f2f.size > 0 and bool(np.isfinite(f2f).all()),
+          f"{label}: dist_f2f finite on every frame {f2f.tolist()}")
+    diff = float(np.abs(f2f - live).max())
+    check(diff <= 1e-4, f"{label}: dist_f2f within 1e-4 m of live process_batch "
+          f"(max diff {diff}; bit-equal: {bool(np.array_equal(f2f, live))})")
+    err = np.abs(f2f - np.asarray(f2f_true[:f2f.size], np.float64))
+    check(err.max() <= F2F_TRUE_LIMIT_M,
+          f"{label}: |dist_f2f - f2f_true| mean {err.mean()} m, max {err.max()} m "
+          f"<= {F2F_TRUE_LIMIT_M} m")
+    return dict(max_diff_m=diff, f2f_err_mean_m=float(err.mean()),
+                f2f_err_max_m=float(err.max()), dist_f2f=f2f.tolist())
 
 
 def phase_end_to_end(dev, counters, frames, n_timed=7, runs=None):
@@ -1535,6 +1651,39 @@ def phase_frozen(dev, counters, frames, n_timed=7):
                                        program_mb=os.path.getsize(path) / 1e6)
         del pipe, call, live, got
         torch.cuda.empty_cache()
+
+        res.update(phase_frozen_fence(dev, counters, frames, tmp))
+    return res
+
+
+def phase_frozen_fence(dev, counters, frames, tmp):
+    """Phase 10 (f): the fence chain on real points (stand-in networks) in a
+    frozen program, grid and exact mode, against live ``process_batch``."""
+    from semantic_depth_tpu_torch import export
+
+    res = {}
+    for key, dtype_name, mode in (("fence_grid_bf16", "bfloat16", "grid"),
+                                  ("fence_exact_f32", "float32", "exact")):
+        log(f"[phase 10] (f) the fence chain: a batched (8, 1024, 2048, 3) program, "
+            f"{dtype_name}, {mode} mode, stand-in networks of 8 bench scenes")
+        pipe, scalars, f2f_true = scene_pipeline(dev, dtype_name, mode)
+        path = export.export_pipeline(pipe, os.path.join(tmp, f"{key}.pt2"),
+                                      tuple(frames.shape), batched=True, scalars_only=True)
+        call = export.load_pipeline(path)
+        live = pipe.process_batch(frames, *scalars)
+        torch.cuda.synchronize()
+        reset_counts(counters)
+        rw, f2f, found = call(frames, *scalars)
+        torch.cuda.synchronize()
+        launches = read_counts(counters)
+        check(launches == (EXACT_LAUNCHES if mode == "exact" else GRID_LAUNCHES),
+              f"{key}: launches inside the program {launches}")
+        check(torch.equal(found, live.rw_found) and bool(found.all()),
+              f"{key}: rw_found equal, every frame's width found")
+        res[key] = dict(launches=launches, **fence_gate(
+            f"frozen {key}", f2f.cpu(), live.dist_f2f.cpu(), f2f_true))
+        del pipe, call, live
+        torch.cuda.empty_cache()
     return res
 
 
@@ -1711,6 +1860,43 @@ def _rank_device():
     return torch.device("cuda", torch.cuda.current_device())
 
 
+# sp's own departure from float32 over the unsharded bfloat16 network's (E):
+# 1.028 on an H100 (PERF.md §6), 1.5 leaves half of E for another draw
+SP_F32_FACTOR = 1.5
+
+
+def sp_bf16_readings(got, want, want32):
+    """The sp bfloat16 gate's readings of sp's output ``got`` against the
+    unsharded bfloat16 ``want`` and float32 ``want32`` outputs."""
+    def max_diff(a, b):
+        return float((a.disparity - b.disparity).abs().max())
+
+    def agreement(a, b):
+        return float((a.road_mask == b.road_mask).float().mean())
+
+    return dict(disparity_max_diff=max_diff(got, want),
+                f32_disparity_max_diff=max_diff(want, want32),
+                sp_f32_disparity_max_diff=max_diff(got, want32),
+                mask_agreement=agreement(got, want), f32_mask_agreement=agreement(want, want32))
+
+
+def sp_bf16_gate(r):
+    """(passed, why) of phase 11 (c)'s sp bfloat16 gate on ``sp_bf16_readings``
+    ``r``, E the unsharded bfloat16 network's largest disparity difference
+    from float32 in the same run: sp within SP_F32_FACTOR * E of float32
+    and, by the triangle inequality on two evaluations each within E of
+    float32, within 2E of the unsharded bfloat16 network; its road mask
+    disagreement at most twice bfloat16-against-float32's (vacuous while
+    neither mask holds a road pixel, as with seeded random networks)."""
+    e = r["f32_disparity_max_diff"]
+    dis, e_dis = 1.0 - r["mask_agreement"], 1.0 - r["f32_mask_agreement"]
+    ok = (r["sp_f32_disparity_max_diff"] <= SP_F32_FACTOR * e
+          and r["disparity_max_diff"] <= 2.0 * e and dis <= 2.0 * e_dis)
+    return ok, (f"sp against float32 {r['sp_f32_disparity_max_diff']} <= {SP_F32_FACTOR} E; "
+                f"sp against unsharded bfloat16 {r['disparity_max_diff']} <= 2 E; "
+                f"E = {e}; road mask disagreement {dis} <= twice {e_dis}")
+
+
 def _multi_device_rank(frames_np, work, n_timed):
     """Phase 11 on one of two ranks sharing the card (gloo): (a) dp, (b) pp,
     (c) sp in float32 and on the native network, (d) sharded frozen
@@ -1809,11 +1995,34 @@ def _multi_device_rank(frames_np, work, n_timed):
     sp.process_frame(frames[0])
     got, launches = run(lambda: sp.process_frame(frames[0]))
     want = pipe.process_frame(frames[0])
+    # the bound: the unsharded bfloat16 network against float32 (same seeded
+    # weights) on the same frame, bfloat16's own rounding
+    pipe32 = build_pipeline(native_config(compute_dtype="float32"), "random", "random",
+                            native_s2d=True, device=dev)
+    want32 = pipe32.process_frame(frames[0])
+    del pipe32
+    # a planted fault the gate must reject: the halo rows zeroed where the
+    # ranks' blocks meet (every exchange of both networks)
+    halo_rows = comm.halo_rows
+
+    def zeroed(x, top, bottom, group, dim=-2):
+        y = halo_rows(x, top, bottom, group, dim)
+        if top or bottom:
+            y.narrow(dim, 0, top).zero_()
+            y.narrow(dim, y.shape[dim] - bottom, bottom).zero_()
+        return y
+
+    comm.halo_rows = zeroed
+    try:
+        bad = sp.process_frame(frames[0])
+    finally:
+        comm.halo_rows = halo_rows
     res["sp_native_bf16"] = dict(
-        launches=launches,
-        disparity_max_diff=float((got.disparity - want.disparity).abs().max()),
-        disparity_max=float(want.disparity.abs().max()),
-        mask_agreement=float((got.road_mask == want.road_mask).float().mean()))
+        launches=launches, disparity_max=float(want.disparity.abs().max()),
+        road_pixels=[int(o.road_mask.sum()) for o in (got, want, want32)],
+        **sp_bf16_readings(got, want, want32),
+        fault=sp_bf16_readings(bad, want, want32))
+    del want32, bad
     res["sp_native_bf16"]["traffic"] = traffic_of(lambda: sp.process_frame(frames[0]))
     res["sp_native_bf16"]["frame_s"] = _timed(lambda: sp.process_frame(frames[0]), n_timed)[0]
     res["sp_native_bf16"]["single_frame_s"] = _single_alone(
@@ -1851,6 +2060,8 @@ def _multi_device_rank(frames_np, work, n_timed):
         del pipe, call, out, ref
         torch.cuda.empty_cache()
 
+    res.update(_fence_rank(dev, frames, work, mesh, run))
+
     # which collectives gloo takes on CUDA tensors as they are (information;
     # comm.py stages CUDA tensors through host memory either way)
     takes = {}
@@ -1866,6 +2077,42 @@ def _multi_device_rank(frames_np, work, n_timed):
         except (RuntimeError, ValueError) as e:
             takes[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
     res["gloo_cuda_collectives"] = takes
+    return res
+
+
+def _fence_rank(dev, frames, work, mesh, run):
+    """Phase 11 (f) on one rank: the fence chain on real points (stand-in
+    networks), dp=2 live and a sharded frozen program, against the single
+    process's whole batch (checked by the parent). ``run(fn)`` gives fn's
+    output and launches."""
+    import torch.distributed as dist
+
+    from semantic_depth_tpu_torch import export
+    from semantic_depth_tpu_torch.export import load_pipeline_sharded
+    from semantic_depth_tpu_torch.parallel import ShardedPipeline
+
+    res = {}
+    rank, world = dist.get_rank(), dist.get_world_size()
+    per = frames.shape[0] // world
+    pipe, scalars, f2f_true = scene_pipeline(dev, "bfloat16", "grid", n=1)
+    f2f_true = f2f_true.repeat(frames.shape[0])
+    live = pipe.process_batch(frames, *scalars)
+    dp = ShardedPipeline(pipe, mesh)
+    dp.process_batch(frames, *scalars)
+    out, launches = run(lambda: dp.process_batch(frames, *scalars))
+    res["fence_dp"] = dict(launches=launches, dist_f2f=out.dist_f2f.tolist(),
+                           live_dist_f2f=live.dist_f2f.tolist(), f2f_true=f2f_true.tolist())
+    path = os.path.join(work, "fence.pt2")
+    if rank == 0:
+        export.export_pipeline(pipe, path, (per,) + tuple(frames.shape[1:]), batched=True,
+                               scalars_only=False)
+    dist.barrier()
+    call = load_pipeline_sharded(path, mesh)
+    call(frames, *scalars)
+    out, launches = run(lambda: call(frames, *scalars))
+    res["fence_frozen_dp"] = dict(launches=launches, dist_f2f=out.dist_f2f.tolist(),
+                                  live_dist_f2f=live.dist_f2f.tolist(),
+                                  f2f_true=f2f_true.tolist())
     return res
 
 
@@ -1940,9 +2187,17 @@ def phase_multi_device(frames, smi, n_timed=5):
         check(sp["traffic"]["halo"]["calls"] > 0, f"rank {k} sp: halo rows exchanged")
         nat = r["sp_native_bf16"]
         check(nat["launches"] == GRID_LAUNCHES, f"rank {k} sp native: launches {nat['launches']}")
-        log(f"  info: rank {k} sp native bfloat16: largest disparity difference "
-            f"{nat['disparity_max_diff']} (of {nat['disparity_max']}), road mask agreement "
-            f"{nat['mask_agreement']}")
+        ok, why = sp_bf16_gate(nat)
+        check(ok, f"rank {k} sp native bfloat16 within bfloat16's own rounding (disparity of "
+              f"{nat['disparity_max']}; road pixels sp / bf16 / f32 {nat['road_pixels']}): {why}")
+        ok, why = sp_bf16_gate(nat["fault"])
+        check(not ok, f"rank {k} sp native bfloat16 with the halo rows zeroed fails that gate: "
+              f"{why}")
+        for key in ("fence_dp", "fence_frozen_dp"):
+            fen = r[key]
+            check(fen["launches"] == GRID_LAUNCHES, f"rank {k} {key}: launches {fen['launches']}")
+            fen.update(fence_gate(f"rank {k} {key}", fen["dist_f2f"], fen["live_dist_f2f"],
+                                  fen["f2f_true"]))
     r0 = ranks[0]
     log(f"  {smi}: backend gloo, world size 2, ranks sharing one card; gloo on CUDA tensors: "
         f"{r0['gloo_cuda_collectives']}")
@@ -2607,6 +2862,208 @@ def phase_params_and_tools(dev, scenes, scene_cloud, frames, smi):
     return res, {"knn_grid_general": k1_row, "exact_knn_large_k": k4_row}
 
 
+# --- phase 14: K2 and K3 at every shape, process_batch at capacity 1000 -------
+# phase 5's bf16 grid rate before the ops padded (PERF.md, NVIDIA H100 80GB HBM3, 700 W)
+UNPADDED_BF16_FRAMES_PER_S = 358.13
+
+
+@contextlib.contextmanager
+def pad_copies():
+    """Counts, by kernel, the calls whose inputs K2's and K3's CUDA ops
+    copied into their kernels' layout (``kernel_layout`` returning anything
+    but the inputs themselves)."""
+    from semantic_depth_tpu_torch.ops import mad, radius
+
+    counts = {"mad": 0, "radius": 0}
+    orig = {"mad": mad.kernel_layout, "radius": radius.kernel_layout}
+
+    def wrap(key):
+        def layout(*args):
+            out = orig[key](*args)
+            counts[key] += any(o is not a for o, a in zip(out, args))
+            return out
+        return layout
+
+    mad.kernel_layout, radius.kernel_layout = wrap("mad"), wrap("radius")
+    try:
+        yield counts
+    finally:
+        mad.kernel_layout, radius.kernel_layout = orig["mad"], orig["radius"]
+
+
+def _radius_cloud(b, c, rng, weights="ones", dev="cuda"):
+    """(b, c) compacted-cloud-like frames, 85% valid, inf garbage on invalid
+    rows; weights all ones, dyadic (1, 2, 0.5) or not (integers / 2.25)."""
+    pts = rng.normal(size=(b, c, 3)) * [0.8, 0.1, 1.5] + [0.0, -1.5, -10.0]
+    pts[..., 2] = np.sort(pts[..., 2], axis=-1)
+    valid = rng.random((b, c)) < 0.85
+    pts[~valid] = np.inf
+    w = {"ones": np.ones((b, c)), "dyadic": rng.choice([1.0, 2.0, 0.5], size=(b, c)),
+         "non_dyadic": rng.integers(1, 9, size=(b, c)) / 2.25}[weights]
+    return (torch.from_numpy(pts.astype(np.float32)).to(dev),
+            torch.from_numpy(valid).to(dev), torch.from_numpy(w.astype(np.float32)).to(dev))
+
+
+def _mad_rows(rows, n, rng, dev="cuda"):
+    """Rows like the frame program's MAD planes: a coordinate around -1.5
+    with 1% far outliers, 7% or 30% of the points valid, row 1 all valid."""
+    x = (rng.normal(size=(rows, n)) * 0.2 - 1.5).astype(np.float32)
+    far = rng.random((rows, n)) < 0.01
+    x[far] = rng.uniform(-40, 40, size=int(far.sum()))
+    ok = rng.random((rows, n)) < np.where(np.arange(rows) % 2 == 0, 0.07, 0.3)[:, None]
+    ok[min(1, rows - 1)] = True
+    return torch.from_numpy(x).to(dev), torch.from_numpy(ok).to(dev)
+
+
+def _launched(fn, wrapper):
+    """fn's output and the launches ``wrapper`` counted in it."""
+    before = wrapper.launches
+    out = fn()
+    torch.cuda.synchronize()
+    return out, wrapper.launches - before
+
+
+def phase_any_shape(dev, counters, frames, rows, e2e):
+    """Phase 14: (a) K3 and (b) K2 at shapes off their kernels' layouts,
+    bit-equal to the plain versions, with times and bounds; (c)
+    ``process_batch`` at ``neighbor_capacity=1000`` (stand-in networks) in
+    grid and exact mode against the CPU port, and no pad copy at the
+    default capacity."""
+    from semantic_depth_tpu_torch.ops import mad, radius
+    from semantic_depth_tpu_torch.utils.probes import cuda_ms, recording_kernel_calls
+
+    res = {}
+    t_phase = time.time()
+    rng = np.random.default_rng(14)
+    log("[phase 14] (a) K3 at capacities 1, 100, 1000, 16383 (padded to 128-candidate tiles) "
+        "and at 65537 frames")
+    for c in (1, 100, 1000, 16383):
+        for kind in ("ones", "dyadic"):
+            xyz, v, w = _radius_cloud(8, c, rng, kind, dev)
+            want = radius.radius_counts_plain(xyz, v, w, 0.5)
+            got, n = _launched(lambda: radius.radius_counts(xyz, v, w, 0.5), radius.radius_counts)
+            got_noskip = radius.radius_counts(xyz, v, w, 0.5, skip=False)
+            check(n == 1 and got.shape == (8, c) and torch.equal(got, want)
+                  and torch.equal(got_noskip, want),
+                  f"K3 (8, {c}) {kind} weights: bit-equal, skip on and off, {n} launch "
+                  f"(largest count {float(want.max())})")
+    xyz, v, w = _radius_cloud(8, 1000, rng, "non_dyadic", dev)
+    runs = [radius.radius_counts(xyz, v, w, 0.5) for _ in range(3)]
+    want = radius.radius_counts_plain(xyz, v, w, 0.5)
+    err = float((runs[0] - want).abs().max())
+    check(all(torch.equal(x, runs[0]) for x in runs)
+          and torch.allclose(runs[0], want, rtol=1e-4, atol=0),
+          f"K3 (8, 1000) non-dyadic weights: three runs equal, within rtol 1e-4 (max abs err "
+          f"{err:.3e})")
+    xyz, v, w = _radius_cloud(65537, 4, rng, "ones", dev)
+    xyz = xyz * 0.05
+    got, n = _launched(lambda: radius.radius_counts(xyz, v, w, 0.5), radius.radius_counts)
+    check(n == 2 and torch.equal(got, radius.radius_counts_plain(xyz, v, w, 0.5)),
+          f"K3 65537 frames of 4: {n} launches (65535 frames each at most), bit-equal")
+
+    log("[phase 14] (b) K2 at row lengths 1, 3, 1022, 1025 and 2^21 + 3 (padded to 4-value "
+        "vectors), a misaligned view, 65538 rows")
+    for n_el in (1, 3, 1022, 1025, (1 << 21) + 3):
+        r = 2 if n_el > 1 << 20 else 8
+        x, ok = _mad_rows(r, n_el, rng, dev)
+        thr = mad.threshold_rows((5.0, 1.0), r, dev)
+        want = mad.mad_keep_mask_plain(x, ok, thr)
+        got, n = _launched(lambda: mad.mad_keep_mask(x, ok, (5.0, 1.0)), mad.mad_keep_mask)
+        check(n == 1 and got.shape == (r, n_el) and torch.equal(got, want)
+              and torch.equal(mad.mad_keep_mask(x, ok, thr), want),
+              f"K2 ({r}, {n_el}): bit-equal, {n} launch ({int(want.sum())} kept)")
+    x, ok = _mad_rows(2, 1028, rng, dev)
+    xv = x.reshape(-1)[1:2049].reshape(2, 1024)
+    okv = ok.reshape(-1)[1:2049].reshape(2, 1024)
+    want = mad.mad_keep_mask_plain(xv, okv, torch.full((2,), 2.0, device=dev))
+    check(xv.data_ptr() % 16 != 0 and torch.equal(mad.mad_keep_mask(xv, okv, 2.0), want),
+          "K2 on a view 4 bytes into its storage: copied, bit-equal")
+    x = torch.from_numpy(rng.normal(size=(65538, 4)).astype(np.float32)).to(dev)
+    x[:, 3] = 30.0
+    ok = torch.from_numpy(rng.random((65538, 4)) < 0.9).to(dev)
+    want = mad.mad_keep_mask_plain(x, ok, mad.threshold_rows((5.0, 1.0), 65538, dev))
+    got, n = _launched(lambda: mad.mad_keep_mask(x, ok, (5.0, 1.0)), mad.mad_keep_mask)
+    check(n == 2 and torch.equal(got, want),
+          f"K2 65538 rows of 4, threshold pair: {n} launches, bit-equal")
+
+    log("[phase 14] (c) process_batch at neighbor_capacity=1000, stand-in networks, 8 frames")
+    cap = {}
+    for mode in ("grid", "exact"):
+        pipe, scalars, _ = scene_pipeline(dev, "bfloat16", mode, capacity=1000)
+        cpu_pipe, _, _ = scene_pipeline("cpu", "bfloat16", mode, capacity=1000)
+        pipe.process_batch(frames, *scalars)
+        torch.cuda.synchronize()
+        reset_counts(counters)
+        with pad_copies() as pads:
+            out = pipe.process_batch(frames, *scalars)
+            torch.cuda.synchronize()
+        launches = read_counts(counters)
+        expected = EXACT_LAUNCHES if mode == "exact" else GRID_LAUNCHES
+        check(launches == expected and pads == {"mad": 0, "radius": 1},
+              f"capacity 1000, {mode}: launches {launches}, calls padded {pads} (K3's one)")
+        t0 = time.time()
+        ref = cpu_pipe.process_batch(frames.cpu(), *scalars)
+        cpu_s = time.time() - t0
+        d = {}
+        for f in ("dist_rw", "dist_f2f"):
+            a, b = getattr(out, f).cpu().numpy(), getattr(ref, f).numpy()
+            check(bool(np.isfinite(a).all()) and np.allclose(a, b, atol=1e-3, rtol=0),
+                  f"capacity 1000, {mode}: {f} finite, within 1e-3 m of the CPU port (max "
+                  f"diff {float(np.abs(a - b).max())}, {a.tolist()})")
+            d[f] = float(np.abs(a - b).max())
+        check(out.road_cloud.valid.shape == (8, 1000), "the road cloud holds 1000 rows a frame")
+        cap[mode] = dict(launches=launches, pads=pads, max_diff_m=d, cpu_s=cpu_s,
+                         road_kept=out.road_cloud.valid.sum(-1).tolist())
+        if mode == "grid":  # the padded launch of the path, timed
+            with recording_kernel_calls() as calls:
+                pipe.process_batch(frames, *scalars)
+            xyz, v, w, r = calls["radius"][0]
+            t_bound, by = bound_ms(xyz.shape[0] * 1000 * (12 + 1 + 4 + 4),
+                                   radius_pairs(xyz, v, r)[0] * 10.0)
+            cap["radius_launch"] = dict(
+                shape=list(v.shape), ms=cuda_ms(lambda: radius.radius_counts(xyz, v, w, r)),
+                plain_ms=cuda_ms(lambda: radius.radius_counts_plain(xyz, v, w, r), iters=5),
+                bound_ms=t_bound, bound_by=by)
+        del pipe, cpu_pipe
+    pipe, scalars, _ = scene_pipeline(dev, "bfloat16", "grid")
+    reset_counts(counters)
+    with pad_copies() as pads:
+        pipe.process_batch(frames, *scalars)
+        torch.cuda.synchronize()
+    launches = read_counts(counters)
+    check(launches == GRID_LAUNCHES and pads == {"mad": 0, "radius": 0},
+          f"default capacity 16384: launches {launches}, no call padded {pads}")
+    cap["default"] = dict(launches=launches, pads=pads)
+    del pipe
+    res["capacity_1000"] = cap
+
+    # times and bounds at padded shapes beside the aligned ones of phase 3
+    x, ok = _mad_rows(8, 131073, rng, dev)
+    x2, ok2 = _mad_rows(2, (1 << 21) + 3, rng, dev)
+    padded = {}
+    for key, (vals, oks) in (("mad_8x131073", (x, ok)), ("mad_2x2097155", (x2, ok2))):
+        thr = torch.full((vals.shape[0],), 5.0, device=dev)
+        t_bound, by = bound_ms(vals.numel() * (4 + 1 + 1), vals.numel() * 37.0)
+        padded[key] = dict(ms=cuda_ms(lambda: mad.mad_keep_mask(vals, oks, 5.0), iters=10),
+                           plain_ms=cuda_ms(lambda: mad.mad_keep_mask_plain(vals, oks, thr),
+                                            iters=5),
+                           bound_ms=t_bound, bound_by=by)
+    padded["radius_8x1000"] = cap["radius_launch"]
+    for key, t in padded.items():
+        log(f"  {key}: wrapper {t['ms']:.4f} ms (pad copy included), plain {t['plain_ms']:.4f}"
+            f" ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    rows["mad"]["padded"] = {k: v for k, v in padded.items() if k.startswith("mad")}
+    rows["radius"]["padded"] = padded["radius_8x1000"]
+    res["padded"] = padded
+    fps = e2e["bfloat16"]["frames_per_s"]
+    log(f"  the default path (phase 5, bfloat16, grid, batch 8): {fps:.2f} frames/s; before "
+        f"the ops padded: {UNPADDED_BF16_FRAMES_PER_S}")
+    res["default_bf16_frames_per_s"] = fps
+    res["wall_s"] = time.time() - t_phase
+    log(f"  phase 14 wall {res['wall_s']:.1f} s")
+    return res
+
+
 def codec_info():
     """Which image codecs import on this host (information, not a check)."""
     code = ("import importlib\n"
@@ -2678,6 +3135,7 @@ def main() -> int:
     multi = phase_multi_device(frames, smi)
     training = phase_multi_device_training(dev, frames, smi)
     params, new_rows = phase_params_and_tools(dev, scenes, scene_cloud, frames, smi)
+    any_shape = phase_any_shape(dev, counters, frames, rows, e2e)
 
     for name, row in rows.items():
         row["launches"] = e2e["bfloat16_exact" if name == "exact_knn" else "float32"][
@@ -2691,6 +3149,7 @@ def main() -> int:
     summary = dict(card=smi, build_s=build_s, geometry=geom, end_to_end=e2e, native=native,
                    entry_points=entry, trainers=trainers, frozen=frozen, multi_device=multi,
                    multi_device_training=training, params_and_tools=params,
+                   any_shape=any_shape,
                    kernels=list(rows.values()),
                    wall_s=time.time() - t_start)
     log("summary: " + json.dumps(summary))

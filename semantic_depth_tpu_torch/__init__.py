@@ -30,6 +30,7 @@ from .config import (  # noqa: E402
     munich_pipeline_config,
     sequence_pipeline_config,
 )
+from .export import export_pipeline, load_pipeline  # noqa: E402
 from .pipeline import FrameOutputs, SemanticDepthPipeline  # noqa: E402
 
 __all__ = [
@@ -42,6 +43,8 @@ __all__ = [
     "SemanticDepthPipeline",
     "TrainConfig",
     "cityscapes_pipeline_config",
+    "export_pipeline",
+    "load_pipeline",
     "munich_pipeline_config",
     "sequence_pipeline_config",
     "__version__",

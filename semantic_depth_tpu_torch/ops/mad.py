@@ -37,6 +37,8 @@ DIGIT_BITS = (11, 11, 10)
 CLUSTER = 8
 RESIDENT_SLICE = 32768
 GROUP = 32  # bins per group of the two-level digit search
+VECTOR = 4  # values a vector load; the kernel's row length is a multiple
+MAX_ROWS = 65535  # rows a launch (the grid's y extent)
 
 
 def _ordered_key(x: torch.Tensor) -> torch.Tensor:
@@ -147,28 +149,52 @@ def _(values, valid, thresholds, t0, t1, split):
     return values.new_empty(values.shape, dtype=torch.bool)
 
 
+def kernel_layout(values: torch.Tensor, valid: torch.Tensor):
+    """(values, valid) as the kernel takes them: rows whose length is a
+    multiple of ``VECTOR`` (at least one vector), contiguous, values 16-byte
+    and valid 4-byte aligned for the vector loads. The inputs themselves
+    where they already are (no copy: the road chain's planes); else fresh
+    copies whose padded entries are invalid. An invalid entry enters no
+    median and is never kept, so the first N columns' mask is that of the
+    unpadded rows."""
+    r, n = values.shape
+    npad = max(VECTOR, -(-n // VECTOR) * VECTOR)
+    if (npad == n and values.is_contiguous() and valid.is_contiguous()
+            and values.data_ptr() % 16 == 0 and valid.data_ptr() % 4 == 0):
+        return values, valid
+    values_k = values.new_zeros((r, npad))
+    valid_k = valid.new_zeros((r, npad))
+    values_k[:, :n] = values
+    valid_k[:, :n] = valid
+    return values_k, valid_k
+
+
 @_mad_op.register_kernel("cuda")
 def _(values, valid, thresholds, t0, t1, split):
-    """The kernel (one cluster per row), or raise."""
+    """The kernel (one cluster per row), or raise. Rows off the kernel's
+    layout are padded (see ``kernel_layout``) and the mask sliced back; the
+    rows go in chunks of at most ``MAX_ROWS``, one launch each (rows are
+    independent, so a chunk's mask is the same)."""
     if values.ndim != 2:
         raise ValueError(f"values must be (R, N), got {tuple(values.shape)}")
     r, n = values.shape
-    if n % 4:
-        raise ValueError(f"N={n} must be a multiple of 4 (vector loads)")
-    if r > 65535:
-        raise ValueError(f"at most 65535 rows a launch, got {r}")
-    _cuda.require(values, "values", torch.float32)
-    _cuda.require(valid, "valid", torch.bool, (r, n))
+    if tuple(valid.shape) != (r, n):
+        raise ValueError(f"valid must have shape {(r, n)}, got {tuple(valid.shape)}")
     if values.device != valid.device:
         raise ValueError("values and valid must be on one device")
-    if values.data_ptr() % 16 or valid.data_ptr() % 4:
-        raise ValueError("values must be 16-byte and valid 4-byte aligned (vector loads)")
-    out = torch.empty((r, n), dtype=torch.bool, device=values.device)
-    if out.numel() == 0:
-        return out
-    _kernel(values, valid, thresholds, t0, t1, split, out)
-    mad_keep_mask.launches += 1
-    return out
+    values_k, valid_k = kernel_layout(values, valid)
+    _cuda.require(values_k, "values", torch.float32)
+    _cuda.require(valid_k, "valid", torch.bool)
+    out = torch.empty(values_k.shape, dtype=torch.bool, device=values.device)
+    if r * n == 0:
+        return out[:, :n]
+    for r0 in range(0, r, MAX_ROWS):
+        rows = slice(r0, r0 + MAX_ROWS)
+        thr = None if thresholds is None else thresholds[rows]
+        _kernel(values_k[rows], valid_k[rows], thr, t0, t1,
+                min(max(split - r0, 0), MAX_ROWS), out[rows])
+        mad_keep_mask.launches += 1
+    return out if out.shape[1] == n else out[:, :n].contiguous()
 
 
 def mad_keep_mask(values: torch.Tensor, valid: torch.Tensor, thresholds) -> torch.Tensor:
@@ -177,8 +203,9 @@ def mad_keep_mask(values: torch.Tensor, valid: torch.Tensor, thresholds) -> torc
     every row, a pair (a, b) for the first and the second half of the rows
     (the fence pair), or an (R,) float32 tensor; the floats go to the kernel
     by value, with no copy to the card. CPU tensors take the plain version;
-    CUDA tensors launch the kernel (one cluster per row, counted in
-    ``launches``) or raise."""
+    CUDA tensors launch the kernel (one cluster per row; one launch per
+    ``MAX_ROWS`` rows, counted in ``launches``) at any R and N, or raise on a
+    wrong rank or dtype or a threshold pair over odd halves."""
     return _mad_op(values, valid, *_op_args(thresholds, values.shape[0]))
 
 

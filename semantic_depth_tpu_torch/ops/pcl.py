@@ -44,8 +44,12 @@ class MaskedCloud:
     def count(self) -> torch.Tensor:
         return self.valid.sum(-1, dtype=torch.int32)
 
+    def replace(self, **changes) -> "MaskedCloud":
+        """A copy with ``changes`` (flax's ``struct.dataclass.replace``)."""
+        return dataclasses.replace(self, **changes)
+
     def with_mask(self, new_valid: torch.Tensor) -> "MaskedCloud":
-        return dataclasses.replace(self, valid=new_valid)
+        return self.replace(valid=new_valid)
 
 
 def from_dense(points: torch.Tensor, colors: torch.Tensor, mask: torch.Tensor) -> MaskedCloud:

@@ -14,10 +14,11 @@ multiply-adds, so each pair counts in both or in neither, and where the
 weighted sums are exact in float32 (integer or dyadic weights) the counts
 are bit-equal on the card. The kernel adds its candidate splits' sums in a
 fixed order, so its counts are the same on every run whatever the weights.
-On the card the wrapper allocates and launches, and nothing else: a
-preparation kernel computes the z-ranges that ``subtile_ranges`` computes
-here, and the count kernel skips, per warp of queries, every subtile whose
-range misses them.
+On the card the wrapper allocates and launches, and at the road chain's
+capacities nothing else (another capacity is padded to the kernel's tiles
+first, see ``kernel_layout``): a preparation kernel computes the z-ranges
+that ``subtile_ranges`` computes here, and the count kernel skips, per warp
+of queries, every subtile whose range misses them.
 """
 
 from __future__ import annotations
@@ -30,11 +31,12 @@ from .pcl import valid_span
 
 # csrc/radius.cu's constants
 SUBTILE = 32  # candidates per z-range
-TILE = 128  # candidates per staged tile; the capacity must be a multiple
+TILE = 128  # candidates per staged tile; the kernel's capacity is a multiple
 QUERIES_PER_THREAD = 2  # consecutive queries of a thread
 WARP_QUERIES = 32 * QUERIES_PER_THREAD  # the queries whose z-range a warp tests
 BLOCK_QUERIES = 4 * WARP_QUERIES
 MAX_SPLITS = 16  # interleaved shares of the candidate tiles (at most C // TILE)
+MAX_FRAMES = 65535  # frames a launch (the grid's y extent)
 _PLAIN_BLOCK = 1024  # candidates per step of the plain version (bounds its memory)
 
 
@@ -92,6 +94,27 @@ def scratch_words(b: int, c: int) -> int:
     return b * (2 * (c // SUBTILE) + splits * c + -(-c // BLOCK_QUERIES))
 
 
+def kernel_layout(xyz: torch.Tensor, valid: torch.Tensor, weights: torch.Tensor):
+    """(xyz, valid, weights) as the kernels take them: a capacity that is a
+    multiple of ``TILE`` (at least one tile), contiguous. The inputs
+    themselves where they already are (no copy: the road chain's
+    capacities); else fresh copies whose padded rows are invalid with
+    weight 0. An invalid candidate adds nothing to a count and an invalid
+    query counts 0, so the first C rows' counts are those of the
+    unpadded cloud."""
+    b, c = valid.shape
+    cp = max(TILE, -(-c // TILE) * TILE)
+    if cp == c and all(t.is_contiguous() for t in (xyz, valid, weights)):
+        return xyz, valid, weights
+    xyz_k = xyz.new_zeros((b, cp, 3))
+    valid_k = valid.new_zeros((b, cp))
+    weights_k = weights.new_zeros((b, cp))
+    xyz_k[:, :c] = xyz
+    valid_k[:, :c] = valid
+    weights_k[:, :c] = weights
+    return xyz_k, valid_k, weights_k
+
+
 def _launch(xyz, valid, weights, radius, skip, scratch, out) -> None:
     """The two kernels on checked tensors; the subtile ranges land in the
     first B * 2 * (C // SUBTILE) words of ``scratch``."""
@@ -119,24 +142,32 @@ def _(xyz, valid, weights, radius, skip):
 
 @_radius_op.register_kernel("cuda")
 def _(xyz, valid, weights, radius, skip):
-    """The two kernels, or raise."""
+    """The two kernels, or raise. A capacity off the kernel's tiles is padded
+    (see ``kernel_layout``) and the counts sliced back; the frames go in
+    chunks of at most ``MAX_FRAMES``, one launch each."""
     if xyz.ndim != 3 or xyz.shape[-1] != 3:
         raise ValueError(f"xyz must be (B, C, 3), got {tuple(xyz.shape)}")
     b, c, _ = xyz.shape
-    if c % TILE:
-        raise ValueError(f"capacity {c} must be a multiple of {TILE}")
-    if b > 65535:
-        raise ValueError(f"at most 65535 frames a launch, got {b}")
-    _cuda.require(xyz, "xyz", torch.float32)
-    _cuda.require(valid, "valid", torch.bool, (b, c))
-    _cuda.require(weights, "weights", torch.float32, (b, c))
-    out = torch.empty((b, c), dtype=torch.float32, device=xyz.device)
-    if out.numel() == 0:
-        return out
-    scratch = torch.empty(scratch_words(b, c), dtype=torch.float32, device=xyz.device)
-    _launch(xyz, valid, weights, radius, skip, scratch, out)
-    radius_counts.launches += 1
-    return out
+    for t, name in ((valid, "valid"), (weights, "weights")):
+        if tuple(t.shape) != (b, c):
+            raise ValueError(f"{name} must have shape {(b, c)}, got {tuple(t.shape)}")
+        if t.device != xyz.device:
+            raise ValueError(f"xyz and {name} must be on one device")
+    xyz_k, valid_k, weights_k = kernel_layout(xyz, valid, weights)
+    _cuda.require(xyz_k, "xyz", torch.float32)
+    _cuda.require(valid_k, "valid", torch.bool)
+    _cuda.require(weights_k, "weights", torch.float32)
+    cp = valid_k.shape[1]
+    out = torch.empty((b, cp), dtype=torch.float32, device=xyz.device)
+    if b * c == 0:
+        return out[:, :c]
+    scratch = torch.empty(scratch_words(min(b, MAX_FRAMES), cp), dtype=torch.float32,
+                          device=xyz.device)
+    for f0 in range(0, b, MAX_FRAMES):
+        f = slice(f0, f0 + MAX_FRAMES)
+        _launch(xyz_k[f], valid_k[f], weights_k[f], radius, skip, scratch, out[f])
+        radius_counts.launches += 1
+    return out if cp == c else out[:, :c].contiguous()
 
 
 def radius_counts(
@@ -147,8 +178,9 @@ def radius_counts(
     (B, C) float32 weighted counts, through the op ``sd_torch::radius_counts``.
     CPU tensors take the plain version; CUDA tensors launch the kernels (one
     preparation block per frame, then grid (C / BLOCK_QUERIES, B,
-    min(MAX_SPLITS, C / TILE)); one call per batch, counted in ``launches``)
-    or raise. ``skip=False`` turns the z-range skip off."""
+    min(MAX_SPLITS, C / TILE)); one launch per ``MAX_FRAMES`` frames, counted
+    in ``launches``) at any B and C, or raise on a wrong rank or dtype.
+    ``skip=False`` turns the z-range skip off."""
     return _radius_op(xyz, valid, weights, float(radius), bool(skip))
 
 

@@ -60,6 +60,10 @@ class FrameOutputs:
     fence_left_valid: torch.Tensor  # (h*w,) bool over points3d.reshape(-1, 3)
     fence_right_valid: torch.Tensor  # (h*w,) bool
 
+    def replace(self, **changes) -> "FrameOutputs":
+        """A copy with ``changes`` (flax's ``struct.dataclass.replace``)."""
+        return dataclasses.replace(self, **changes)
+
     def map(self, fn) -> "FrameOutputs":
         """``fn`` applied to every tensor (or array) field, the road
         cloud's three included; a field left None stays None."""

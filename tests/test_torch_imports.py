@@ -33,7 +33,8 @@ def _imports(path: Path):
 def test_port_sources_import_no_jax_and_no_jax_package():
     tools = [REPO / "tools" / name for name in ("profile_torch_port.py", "time_mad_radius.py",
                                                 "time_knn.py", "knn_variants.py",
-                                                "train_bench_weights_torch.py") + _NEW_TOOLS]
+                                                "train_bench_weights_torch.py",
+                                                "sp_layer_diff_torch.py") + _NEW_TOOLS]
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + tools
     assert len(files) > 10
     assert {"comm.py", "mesh.py", "spatial.py", "inference.py", "pp.py", "launch.py",
@@ -79,3 +80,50 @@ def test_importing_the_port_loads_no_jax_package_module():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120, check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_public_names_match_the_jax_package():
+    import semantic_depth_tpu
+    import semantic_depth_tpu_torch
+
+    assert semantic_depth_tpu_torch.__all__ == semantic_depth_tpu.__all__
+    for name in semantic_depth_tpu_torch.__all__:
+        assert hasattr(semantic_depth_tpu_torch, name), name
+
+
+def test_replace_behaves_as_flax_struct_replace():
+    """``FrameOutputs.replace`` and ``MaskedCloud.replace`` on both packages:
+    a new instance with the changed fields, the original untouched, an
+    unknown field refused with TypeError."""
+    import dataclasses
+
+    import numpy as np
+    import pytest
+    import torch
+
+    from semantic_depth_tpu import pipeline as jax_pipeline
+    from semantic_depth_tpu.ops import pcl as jax_pcl
+    from semantic_depth_tpu_torch import pipeline as torch_pipeline
+    from semantic_depth_tpu_torch.ops import pcl as torch_pcl
+
+    for mod_pipe, mod_pcl, arr in ((jax_pipeline, jax_pcl, np.zeros),
+                                   (torch_pipeline, torch_pcl, torch.zeros)):
+        cloud = mod_pcl.MaskedCloud(xyz=arr((4, 3)), rgb=arr((4, 3)), valid=arr((4,)))
+        valid = arr((4,)) + 1
+        moved = cloud.replace(valid=valid)
+        assert type(moved) is type(cloud) and moved is not cloud
+        assert moved.valid is valid and moved.xyz is cloud.xyz
+        assert float(cloud.valid.sum()) == 0.0
+        with pytest.raises(TypeError):
+            cloud.replace(colour=valid)
+        names = [f.name for f in dataclasses.fields(mod_pipe.FrameOutputs)]
+        out = mod_pipe.FrameOutputs(**{n: (cloud if n == "road_cloud" else arr((1,)))
+                                       for n in names})
+        rw = arr((1,)) + 2.5
+        moved = out.replace(dist_rw=rw, road_cloud=moved)
+        assert moved.dist_rw is rw and moved.road_cloud.valid is valid
+        assert float(out.dist_rw[0]) == 0.0 and out.road_cloud is cloud
+        assert all(getattr(moved, n) is getattr(out, n) for n in names
+                   if n not in ("dist_rw", "road_cloud"))
+        with pytest.raises(TypeError):
+            out.replace(dist_rw_m=rw)

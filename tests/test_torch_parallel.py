@@ -91,17 +91,28 @@ _CASES = (
 )
 
 
+def _bf16(spec):
+    """``spec`` with both networks computing in bfloat16."""
+    kw = dict(compute_dtype=torch.bfloat16)
+    return dict(spec, fcn_kw=dict(spec["fcn_kw"], **kw), mono_kw=dict(spec["mono_kw"], **kw),
+                config=dataclasses.replace(spec["config"], compute_dtype="bfloat16"))
+
+
 @pytest.fixture(scope="module")
 def groups(setups):
     """One group of ranks per world size, each running all its cases; the
-    world of 3 also runs the halo unit case, and the world of 4 the error
-    cases."""
+    world of 2 also runs sp on bfloat16 networks, the world of 3 the halo
+    unit case, and the world of 4 the error cases."""
     specs = {k: v[2] for k, v in setups.items()}
+    specs["vgg_bf16"] = _bf16(specs["vgg"])
     out = {}
     for world in (2, 3, 4):
         todo = [dict(name=name, kind=kind, pipe=pipe, frames=_FRAMES[:batch],
                      disparity_mult=_MULT, **extra)
                 for name, w, kind, pipe, batch, extra in _CASES if w == world]
+        if world == 2:
+            todo.append(dict(name="sp2_bf16", kind="sp", pipe="vgg_bf16", frames=_FRAMES[:2],
+                             disparity_mult=_MULT))
         if world == 3:
             todo.append(dict(name="halo", kind="halo", args=(5, 2, 1)))
         if world == 4:
@@ -172,6 +183,21 @@ def test_sharded_serving_matches_jax_and_the_single_process_port(
         assert traffic["halo"]["calls"] == 0
     else:
         assert traffic["gather"]["calls"] == 1 and traffic["halo"]["calls"] == 0
+
+
+def test_sp_bfloat16_is_bit_equal_to_the_single_process_port(groups, setups):
+    """sp=2 on bfloat16 networks gives the single-process bfloat16 port's
+    bits on the CPU, halo rows included. On the card cuDNN picks its
+    bfloat16 algorithms by shape, so a row block rounds apart from the
+    whole map now and then: chip_smoke.py phase 11 (c) bounds that."""
+    want = cases.build_pipeline(_bf16(setups["vgg"][2])).process_batch(
+        _FRAMES[:2], disparity_mult=_MULT)
+    res = [r["sp2_bf16"] for r in groups[2]]
+    assert len({r["digest"] for r in res}) == 1
+    assert res[0]["traffic"]["halo"]["calls"] > 10
+    for f in cases.FIELDS:
+        np.testing.assert_array_equal(res[0]["out"][f], getattr(want, f).numpy(), err_msg=f)
+    assert np.isfinite(res[0]["out"]["disparity"]).all()
 
 
 def test_some_road_widths_are_measured(references):
