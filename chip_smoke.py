@@ -136,11 +136,13 @@ either is missing or any check fails. Phases:
    tools: (a) K1's general kernel (any (k, window) but the road chain's)
    bit-equal to its plain version at (8, 256, 512) for (k, window) = (20,
    (5, 21)), (10, (7, 21)), (10, (5, 31)), (10, (7, 31)), (6, (4, 20)),
-   (40, (9, 33)) and (20, (7, 31)), on grids with valid +-inf points, and
+   (40, (9, 33)), (32, (7, 31)) (registers) against (33, (7, 31)) (the
+   k > 32 buffers) and (20, (7, 31)), on grids with valid +-inf points, and
    at the native (2, 1024, 2048) launch under stat_window (7, 31); the road
    chain's (10, (5, 21)) still on the specialised kernel; (b) K4's large-k
-   kernel at k = 33, 50, 64 and 100 bit-equal on (8, 16384) (skip on and
-   off) and (1, 131072); kernel, plain and bound ms of each; (c) the outlier
+   walks at k = 33, 50, 64 and 100 (and k = 32 on the register walks)
+   bit-equal on (8, 16384) (skip on and off) and (1, 131072); kernel,
+   plain and bound ms and the kernels' counts of each; (c) the outlier
    tool with ``--nb_neighbors 50`` as a subprocess, its PLY equal to the
    plain versions' keep set, and ``filter_ply`` in process (K4 large-k x1,
    K3 x1); (d) the geometry tail under stat_window (7, 31), k = 20 on the
@@ -153,7 +155,7 @@ either is missing or any check fails. Phases:
    longest kernels of each block); (h) ``tools/native_mae_curve_torch.py``
    at 4 full-width steps a network, one eval point on 4 scenes, in a
    temporary directory, with each training's seconds a step at 1024x2048;
-14. K2 and K3 at every shape the JAX package takes: (a) K3 at capacities
+14. K1-K4 at every shape and batch the JAX package takes: (a) K3 at capacities
    1, 100, 1000 and 16383 (padded to its 128-candidate tiles), ones and
    dyadic weights, skip on and off, bit-equal; non-dyadic weights at 1000
    the same on three runs and within rtol 1e-4; 65537 frames in two
@@ -162,9 +164,12 @@ either is missing or any check fails. Phases:
    bit-equal; (c) ``process_batch`` at ``neighbor_capacity=1000`` with the
    stand-in networks in grid and exact mode, within 1e-3 m of the CPU port,
    the default launches and one padded call (K3's), and at the default
-   capacity no padded call; the padded launches' wrapper, plain and bound
+   capacity no padded call; (d) K1 (specialised, general at (20, (7, 31))
+   and (40, (5, 11))) and K4 (k = 10 and 50) on 65,537 small frames in two
+   launches each, bit-equal; the padded launches' wrapper, plain and bound
    ms, and phase 5's bfloat16 frames/s beside the rate recorded before
-   the padding (358.13, PERF.md).
+   the padding (358.13, PERF.md). The seconds each phase took close the
+   run (``phase walls``).
 
 The second-to-last lines are the card's name and power limit and one JSON
 object with the kernels' numbers (``frozen_launches``: phase 10's programs';
@@ -606,8 +611,8 @@ def exact_knn_bound(valid, k=10):
     return bound_ms(n_bytes, needed * 10.0) + (needed, bound_ms(n_bytes, pairs * 10.0)[0], pairs)
 
 
-def exact_knn_scanned(xyz, valid):
-    """What the kernels did on this input (their own counts, one extra
+def exact_knn_scanned(xyz, valid, k=10):
+    """What the kernels did on this input at k (their own counts, one extra
     launch that no counter sees) and, as a diagnostic beside the bound, the
     time of that work at the card's peak rate: the pairs both walks computed
     d2 for at 10 operations each, each subtile test at 21 operations for
@@ -618,9 +623,9 @@ def exact_knn_scanned(xyz, valid):
     from semantic_depth_tpu_torch.ops import exact_knn
 
     b, c = valid.shape
-    scratch = torch.empty(exact_knn.scratch_words(b, c, 10), device=xyz.device)
+    scratch = torch.empty(exact_knn.scratch_words(b, c, k), device=xyz.device)
     out = torch.empty((b, c), device=xyz.device)
-    exact_knn._launch(xyz, valid, 10, True, scratch, out)
+    exact_knn._launch(xyz, valid, k, True, scratch, out)
     stats = exact_knn.scratch_stats(scratch)
     sub, grp = exact_knn.scratch_boxes(scratch, b, c)
     want_sub, want_grp = exact_knn.subtile_boxes(xyz, valid)
@@ -2482,9 +2487,11 @@ def phase_multi_device_training(dev, frames, smi, n_steps=3):
 # --- phase 13: K1 and K4 at every parameter, and the offline tools ------------
 # (k, window) cases of the general K1 kernel; (20, (7, 31)) is the path's
 K1_GENERAL_CASES = ((20, (5, 21)), (10, (7, 21)), (10, (5, 31)), (10, (7, 31)), (6, (4, 20)),
-                    (40, (9, 33)), (20, (7, 31)))
+                    (40, (9, 33)), (32, (7, 31)), (33, (7, 31)), (20, (7, 31)))
 K1_PATH = (20, (7, 31))  # the road config phase 13's process_batch runs
-K4_LARGE_K = (33, 50, 64, 100)
+K1_ROAD = (10, (5, 21))  # the road chain's setting: the specialised kernel
+# k = 32 takes the register walks: the reference for the large-k walks' k = 33
+K4_LARGE_K = (32, 33, 50, 64, 100)
 K4_PATH_K = 50  # the outlier tool's --nb_neighbors in phase 13
 
 
@@ -2618,7 +2625,7 @@ def phase_k4_large_k(dev, scenes, scene_cloud):
     from semantic_depth_tpu_torch.ops import exact_knn
     from semantic_depth_tpu_torch.utils.probes import cuda_ms
 
-    log("[phase 13] (b) K4 large-k kernel at k = 33, 50, 64, 100")
+    log("[phase 13] (b) K4 large-k kernels at k = 33, 50, 64, 100 (k = 32: the register walks)")
     fn, plain = exact_knn.knn_mean_distances_exact, exact_knn.knn_mean_distances_exact_plain
     xyz, valid = exact_road_clouds(scenes)
     big_xyz, big_valid, _ = scene_cloud
@@ -2631,22 +2638,28 @@ def phase_k4_large_k(dev, scenes, scene_cloud):
             torch.cuda.synchronize()
             fin = torch.isfinite(want)
             err = (got[fin] - want[fin]).abs().max().item() if fin.any() else 0.0
-            check(fn.large_k_launches == before + 1 and torch.equal(got, want)
+            large = int(k > exact_knn.REGISTER_MAX_K)
+            check(fn.large_k_launches == before + large and torch.equal(got, want)
                   and bool(torch.isfinite(got[v]).all()),
-                  f"K4 k={k} {name}: one large-k launch, bit-equal to the plain version "
+                  f"K4 k={k} {name}: {large} large-k launch, bit-equal to the plain version "
                   f"(max abs err {err}, {int(fin.sum())} finite)")
             if name.startswith("road"):
                 check(torch.equal(fn(x, v, k, skip=False), want),
                       f"K4 k={k} {name}: bit-equal with the box skip off")
             t_bound, by, needed, _, _ = exact_knn_bound(v, k)
             case = dict(k=k, ms=cuda_ms(lambda: fn(x, v, k), iters=5, warmup=1),
-                        bound_ms=t_bound, bound_by=by, pairs_needed=needed, max_abs_err=err)
+                        bound_ms=t_bound, bound_by=by, pairs_needed=needed, max_abs_err=err,
+                        counts=exact_knn_scanned(x, v, k)[3])
             if k == K4_PATH_K or name.startswith("road"):
                 case["plain_ms"] = cuda_ms(lambda: plain(x, v, k), iters=1, warmup=1)
             cases[f"k={k} {name}"] = case
             log(f"  K4 k={k} {name}: kernel {case['ms']:.4f} ms, plain "
-                f"{case.get('plain_ms', float('nan')):.3f} ms, bound {t_bound:.5f} ms ({by})")
+                f"{case.get('plain_ms', float('nan')):.3f} ms, bound {t_bound:.5f} ms ({by}); "
+                f"counts {case['counts']}")
     main = cases[f"k={K4_PATH_K} scene (1, 131072)"]
+    cases = {key: c for key, c in cases.items() if c["k"] > exact_knn.REGISTER_MAX_K} | {
+        key + " (register walks)": c for key, c in cases.items()
+        if c["k"] <= exact_knn.REGISTER_MAX_K}
     row = dict(name="exact_knn_large_k", route="cuda",
                source="semantic_depth_tpu_torch/csrc/exact_knn.cu",
                replaces="semantic_depth_tpu/ops/pallas_exact_knn.py:32",
@@ -2862,7 +2875,7 @@ def phase_params_and_tools(dev, scenes, scene_cloud, frames, smi):
     return res, {"knn_grid_general": k1_row, "exact_knn_large_k": k4_row}
 
 
-# --- phase 14: K2 and K3 at every shape, process_batch at capacity 1000 -------
+# --- phase 14: K1-K4 at every shape, process_batch at capacity 1000 -----------
 # phase 5's bf16 grid rate before the ops padded (PERF.md, NVIDIA H100 80GB HBM3, 700 W)
 UNPADDED_BF16_FRAMES_PER_S = 358.13
 
@@ -2928,7 +2941,8 @@ def phase_any_shape(dev, counters, frames, rows, e2e):
     bit-equal to the plain versions, with times and bounds; (c)
     ``process_batch`` at ``neighbor_capacity=1000`` (stand-in networks) in
     grid and exact mode against the CPU port, and no pad copy at the
-    default capacity."""
+    default capacity; (d) K1 (specialised and general) and K4 (k = 10 and
+    50) on 65,537 small frames, two launches each."""
     from semantic_depth_tpu_torch.ops import mad, radius
     from semantic_depth_tpu_torch.utils.probes import cuda_ms, recording_kernel_calls
 
@@ -3037,6 +3051,37 @@ def phase_any_shape(dev, counters, frames, rows, e2e):
     del pipe
     res["capacity_1000"] = cap
 
+    log("[phase 14] (d) K1 and K4 at 65537 frames, in chunks of at most 65535")
+    from semantic_depth_tpu_torch.ops import exact_knn, knn_grid
+
+    grid_fn, knn_fn = knn_grid.knn_mean_distances_grid, exact_knn.knn_mean_distances_exact
+    pts = torch.from_numpy((rng.normal(size=(65537, 6, 16, 3)) * [2.0, 0.3, 5.0])
+                           .astype(np.float32)).to(dev)
+    ok = torch.from_numpy(rng.random((65537, 6, 16)) < 0.9).to(dev)
+    chunks = {}
+    for k, window in ((knn_grid.KERNEL_K, knn_grid.KERNEL_WINDOW), K1_PATH, (40, (5, 11))):
+        general = grid_fn.general_launches
+        got, n = _launched(lambda: grid_fn(pts, ok, k, window), grid_fn)
+        n_general = grid_fn.general_launches - general
+        want = knn_grid.knn_mean_distances_grid_plain(pts, ok, k, window)
+        check(n == 2 and n_general == 2 * ((k, window) != K1_ROAD) and _same(got, want),
+              f"K1 65537 frames of 6x16, k={k} {window}: {n} launches ({n_general} general), "
+              f"bit-equal ({int(torch.isfinite(want).sum())} finite)")
+        chunks[f"K1 k={k} {window}"] = dict(launches=n, general_launches=n_general)
+    xyz = torch.from_numpy((rng.normal(size=(65537, 40, 3)) * [2.0, 0.3, 5.0])
+                           .astype(np.float32)).to(dev)
+    v = torch.from_numpy(rng.random((65537, 40)) < 0.8).to(dev)
+    for k in (10, 50):
+        large = knn_fn.large_k_launches
+        got, n = _launched(lambda: knn_fn(xyz, v, k), knn_fn)
+        n_large = knn_fn.large_k_launches - large
+        check(n == 2 and n_large == 2 * (k > exact_knn.REGISTER_MAX_K)
+              and torch.equal(got, exact_knn.knn_mean_distances_exact_plain(xyz, v, k)),
+              f"K4 65537 clouds of 40 rows, k={k}: {n} launches ({n_large} large-k), bit-equal")
+        chunks[f"K4 k={k}"] = dict(launches=n, large_k_launches=n_large)
+    res["past_65535_frames"] = chunks
+    del pts, ok, xyz, v
+
     # times and bounds at padded shapes beside the aligned ones of phase 3
     x, ok = _mad_rows(8, 131073, rng, dev)
     x2, ok2 = _mad_rows(2, (1 << 21) + 3, rng, dev)
@@ -3105,6 +3150,14 @@ def main() -> int:
     build_s = time.time() - t0
     log(f"  kernels built and loaded in {build_s:.1f} s")
 
+    walls = {"1-2": time.time() - t_start}  # seconds by phase (the whole run's split)
+    t_mark = [time.time()]
+
+    def mark(name):
+        now = time.time()
+        walls[name] = now - t_mark[0]
+        t_mark[0] = now
+
     counters = kernel_counters()
     log("[phase 3] kernels against their plain versions")
     scenes = scene_batch(8, 256, 512, seed=0, dev=dev)
@@ -3112,14 +3165,18 @@ def main() -> int:
         rows = phase_kernels(dev, scenes)
         rows["exact_knn"], scene_cloud = phase_exact_knn(dev, scenes)
         native_rows, native_geom = phase_native_kernels(dev)
+    mark("3")
     geom = {mode: phase_geometry(dev, scenes, counters, mode) for mode in ("grid", "exact")}
+    mark("4")
     from semantic_depth_tpu_torch.utils.bench_scenes import scene_pool
 
     frames = torch.from_numpy(scene_pool(8, 1024, 2048, seed=3)[0]).to(dev)  # uint8
     e2e = phase_end_to_end(dev, counters, frames)
+    mark("5")
     entry = dict(staged=phase_staged(dev, counters, frames[0]),
                  outlier_removal=phase_outlier_removal(dev, scene_cloud),
                  codecs=codec_info())
+    mark("6")
 
     native = dict(geometry=native_geom,
                   end_to_end=phase_native_end_to_end(dev, counters, frames))
@@ -3128,14 +3185,23 @@ def main() -> int:
         ("resnet50_bfloat16", "bfloat16", "grid", "resnet50"))))
     check(e2e["resnet50_float32"]["launches"] == e2e["float32"]["launches"],
           "resnet50 launches per batch equal the vgg path's")
+    mark("7")
     entry["clis"] = phase_clis(dev, frames)
+    mark("8 (10 c)")
     trainers = phase_trainers(dev, counters, frames)
+    mark("9")
     frozen = phase_frozen(dev, counters, frames)
     frozen.update(phase_native_ply_and_tools(dev, scene_cloud, frames))
+    mark("10")
     multi = phase_multi_device(frames, smi)
+    mark("11")
     training = phase_multi_device_training(dev, frames, smi)
+    mark("12")
     params, new_rows = phase_params_and_tools(dev, scenes, scene_cloud, frames, smi)
+    mark("13")
     any_shape = phase_any_shape(dev, counters, frames, rows, e2e)
+    mark("14")
+    log("  phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
 
     for name, row in rows.items():
         row["launches"] = e2e["bfloat16_exact" if name == "exact_knn" else "float32"][
@@ -3149,7 +3215,7 @@ def main() -> int:
     summary = dict(card=smi, build_s=build_s, geometry=geom, end_to_end=e2e, native=native,
                    entry_points=entry, trainers=trainers, frozen=frozen, multi_device=multi,
                    multi_device_training=training, params_and_tools=params,
-                   any_shape=any_shape,
+                   any_shape=any_shape, phase_walls_s=walls,
                    kernels=list(rows.values()),
                    wall_s=time.time() - t_start)
     log("summary: " + json.dumps(summary))

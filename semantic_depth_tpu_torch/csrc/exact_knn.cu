@@ -64,16 +64,22 @@
 //    walk's buf[K-1] and drops to the lanes' smallest buf[K-1] after each
 //    group. The K smallest of the 32 buffers are merged by K warp minima,
 //    in ascending order.
-// 4. exact_knn_large_kernel, for k > 32 in place of 2 and 3: the K smallest
-//    do not fit in registers, so each query's buffer lives in the scratch
-//    (dbuf, entry t of query i at t * B Cp + i), sorted, insertion from the
-//    end, its largest kept in a register for the reject. One thread a
-//    query, a warp the 32 rows of one subtile; it walks the groups outward
-//    from its own (own, +1, -1, +2, ...), each group's subtiles from its own
-//    subtile outward or from the side facing its own, and scans a subtile
-//    (staged in shared memory, one broadcast float4 a candidate) when a
-//    lane's own threshold does not rule out its group's box and then its
-//    box (the margin below).
+// 4. For k > 32 the K smallest do not fit in registers. The same schedule
+//    then runs with each query's 32 smallest in registers and the other
+//    k - 32 in memory (csrc/kselect.cuh: unsorted, their largest tracked;
+//    every lane pays the same for a value, so no lane's insertion holds its
+//    warp): exact_knn_lk_kernel is the near walk of 2. with the tests a-d
+//    against the same thresholds and the same deferral, the k - 32 values
+//    of a warp's 64 queries interleaved in dynamic shared memory (4, 2 or 1
+//    warps a block, as fit; past k = 934 one warp's do not fit in 227 KB
+//    and live in the scratch); a deferred query leaves only its row and
+//    its k-th smallest. The far walk, exact_knn_lk_far_kernel, is 3. with
+//    its own group included and that value as an inclusive bound T: lanes
+//    append the candidates with d2 <= T to a pending list (a ballot),
+//    which the warp sorts (bitonic) and merges into its sorted k smallest
+//    by rank; after each group T drops to their k-th. Its mean sums them
+//    in ascending order.
+//    ops/exact_knn.py::large_k_layout picks the warps and the placement.
 // skip = 0 turns every test and the deferral off: each warp scans every
 // candidate of its frame in row order (validation).
 // Each warp adds what it did to 64-bit counters: pairs of the near and the
@@ -90,13 +96,17 @@
 // if g > thr (1 + 2^-20) + 2^-19 (|q|^2 + m), m >= |c|^2 the box's largest
 // (each step rounded, which costs a few u more). Then d2 >= |q - c|^2 - E >
 // thr (1 + 16u)(1 - 6u) + (32u (1 - 6u) - 12u)(|q|^2 + |c|^2) >= thr: the
-// candidate would have failed d2 < thr. A nan query or an infinite |q|^2
-// or m makes the threshold nan or +inf, so nothing is skipped for it; a
-// nan threshold counts as +inf in tmax. This is tighter than radius.cu's
-// 4e-6 max|p|^2 on clouds that reach far from the origin (a scene's sky).
+// candidate would have failed d2 < thr, and the far walk's d2 <= T too. A
+// nan query or an infinite |q|^2 or m makes the threshold nan or +inf, so
+// nothing is skipped for it; a nan threshold counts as +inf in tmax. This
+// is tighter than radius.cu's 4e-6 max|p|^2 on clouds that reach far from
+// the origin (a scene's sky).
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "kselect.cuh"
 
 namespace {
 
@@ -120,8 +130,9 @@ struct Scratch {
   float4* cand;   // (B, Cp): x, y, z, |c|^2; invalid (0, 0, 0, +inf)
   float4* sub;    // (B, S, 2): (lo x, y, z, m), (hi x, y, z, 0)
   float4* grp;    // (B, G, 2)
-  float* dbuf;    // (B Cp, K): deferred queries' near-walk buffers
+  float* dbuf;    // (B Cp, K): deferred queries' near-walk buffers (k <= 32)
   int* drow;      // (B Cp): deferred queries' frame * Cp + row
+  float* dthr;    // (B Cp): deferred queries' near-walk buf[k-1] (k > 32)
   int* ndef;      // deferred count
   unsigned long long* stats;
 };
@@ -556,115 +567,443 @@ __global__ void __launch_bounds__(kThreads) exact_knn_far_kernel(float* __restri
   if (lane == 0 && pairs) atomicAdd(sc.stats + kPairsFar, pairs);
 }
 
-__global__ void __launch_bounds__(kThreads) exact_knn_large_kernel(
+// --- k > 32 --------------------------------------------------------------------
+
+constexpr int kPend = 512;  // the far walk's pending values, sorted and merged at once
+constexpr int kInFlight = 8;  // the far walks' subtile loads in flight
+
+// the largest threshold of the warp's live lanes (nan as +inf; -inf if none)
+__device__ __forceinline__ float warp_tmax_lk(const float (&thr)[kQ], const float (&qa)[kQ],
+                                              const bool (&live)[kQ]) {
+  float t = -CUDART_INF_F;
+#pragma unroll
+  for (int j = 0; j < kQ; ++j) {
+    if (live[j]) {
+      const float tl = lane_t(thr[j], qa[j]);
+      t = fmaxf(t, tl <= CUDART_INF_F ? tl : CUDART_INF_F);
+    }
+  }
+  return warp_max(t);
+}
+
+// The near walk for k > 32: exact_knn_kernel's schedule (the tests a-d in
+// the same order against the same thresholds, the same deferral), each
+// query's k smallest in kselect.cuh's registers and buffer: the warp's 64
+// buffers of k - 32 interleaved (entry t of query j of a lane at
+// t * 64 + 32 j + lane), in dynamic shared memory after the warp's boxes and
+// staged candidates, or (Shared = false, a k too large for one warp's 64
+// buffers) in the scratch. thr is a query's k-th smallest (+inf until k
+// values were offered, -inf once it is not live). A deferred query leaves
+// only its row and thr: the far walk searches again from that bound.
+template <bool Shared>
+__global__ void __launch_bounds__(kThreads) exact_knn_lk_kernel(
     const uint8_t* __restrict__ valid_all, float* __restrict__ out_all, Scratch sc, int C, int S,
-    int G, int k, int skip) {
-  __shared__ float4 stage[kWarps][kSub];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    int G, int k, int skip, float* __restrict__ gbuf) {
+  extern __shared__ float4 lk_smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_w = blockDim.x >> 5;
+  float4(*sbox)[2] = reinterpret_cast<float4(*)[2]>(lk_smem + warp * 2 * kGroup);
+  float4* stage = lk_smem + n_w * 2 * kGroup + warp * kSub;
   const int b = blockIdx.y;
   const int Cp = S * kSub;
-  const int row = blockIdx.x * kThreads + threadIdx.x;
   const float4* __restrict__ cand = sc.cand + static_cast<size_t>(b) * Cp;
   const float4* __restrict__ sub = sc.sub + static_cast<size_t>(b) * S * 2;
   const float4* __restrict__ grp = sc.grp + static_cast<size_t>(b) * G * 2;
-  const size_t stride = static_cast<size_t>(gridDim.y) * Cp;  // B Cp
-  float* buf = sc.dbuf + static_cast<size_t>(b) * Cp + row;
-  const bool act = row < C && valid_all[static_cast<size_t>(b) * C + row];
-  const float4 q = act ? cand[row] : make_float4(0.f, 0.f, 0.f, CUDART_INF_F);
-  const float3 q3 = make_float3(q.x, q.y, q.z);
-  const float qa = margin(q.w);
-  float thr = act ? CUDART_INF_F : -CUDART_INF_F;  // -inf: never inserts
-  if (act)
-    for (int t = 0; t < k; ++t) buf[t * stride] = CUDART_INF_F;
-  if (!__any_sync(kFull, act)) {  // a warp's rows are one subtile: all past Cp or none
-    if (row < C) out_all[static_cast<size_t>(b) * C + row] = CUDART_INF_F;
+  const uint8_t* valid = valid_all + static_cast<size_t>(b) * C;
+  float* out = out_all + static_cast<size_t>(b) * C;
+  const int wq = blockIdx.x * n_w + warp;  // the warp's index in its frame
+  const int q0 = wq * kWarpQueries;
+  const int m = k - sd_kselect::kReg;  // a query's values past its registers
+  float* qb;
+  if (Shared)
+    qb = reinterpret_cast<float*>(lk_smem + n_w * 3 * kSub) +
+         static_cast<size_t>(warp) * kWarpQueries * m + lane;
+  else
+    qb = gbuf + (static_cast<size_t>(b) * gridDim.x * n_w + wq) * kWarpQueries * m + lane;
+
+  float qx[kQ], qy[kQ], qz[kQ], qs[kQ], qa[kQ], thr[kQ];
+  float reg[kQ][sd_kselect::kReg];
+  int cnt[kQ], at[kQ];
+  bool act[kQ], live[kQ];
+#pragma unroll
+  for (int j = 0; j < kQ; ++j) {
+    const int row = q0 + 32 * j + lane;
+    act[j] = row < C && valid[row];
+    const float4 c = act[j] ? cand[row] : make_float4(0.f, 0.f, 0.f, CUDART_INF_F);
+    qx[j] = c.x;
+    qy[j] = c.y;
+    qz[j] = c.z;
+    qs[j] = c.w;
+    qa[j] = margin(c.w);
+    live[j] = act[j];
+    thr[j] = act[j] ? CUDART_INF_F : -CUDART_INF_F;  // -inf: never inserts
+    cnt[j] = 0;
+    at[j] = 0;
+#pragma unroll
+    for (int t = 0; t < sd_kselect::kReg; ++t) reg[j][t] = CUDART_INF_F;
+  }
+  if (!__any_sync(kFull, act[0] || act[1])) {
+#pragma unroll
+    for (int j = 0; j < kQ; ++j)
+      if (q0 + 32 * j + lane < C) out[q0 + 32 * j + lane] = CUDART_INF_F;
     return;
   }
-  unsigned long long n_pairs = 0;
+  float3 qlo, qhi;
+  query_box(qx, qy, qz, live, qlo, qhi);
 
-  auto scan = [&](int si) {
-    if (skip) {
-      const float4 lo = sub[2 * si], hi = sub[2 * si + 1];
-      const bool need = act && !(lo.x > hi.x) &&
-                        !(gap2(q3, q3, lo, hi) > __fadd_rn(lane_t(thr, qa), margin(lo.w)));
-      if (!__any_sync(kFull, need)) return;
+  const int own = q0 / kSub, g0 = own / kGroup, r0 = own % kGroup;
+  unsigned long long pairs_near = 0, loads = 0, tests = 0, deferred = 0;
+
+  auto visit_group = [&](int g) {  // b, c, d and the scan, as exact_knn_kernel
+    const float tmax = warp_tmax_lk(thr, qa, live);
+    const int si = g * kGroup + lane;
+    float4 blo = make_float4(CUDART_INF_F, 0.f, 0.f, 0.f);
+    float4 bhi = make_float4(-CUDART_INF_F, 0.f, 0.f, 0.f);
+    if (si < S) {
+      blo = sub[2 * si];
+      bhi = sub[2 * si + 1];
     }
-    n_pairs += kSub * 32;
+    const bool mark =
+        si < S && (!skip || (!(blo.x > bhi.x) &&
+                             !(gap2(qlo, qhi, blo, bhi) > __fadd_rn(tmax, margin(blo.w)))));
+    const unsigned marks = __ballot_sync(kFull, mark);
     __syncwarp();
-    stage[warp][lane] = cand[si * kSub + lane];
+    sbox[lane][0] = blo;
+    sbox[lane][1] = bhi;
     __syncwarp();
-    for (int t = 0; t < kSub; ++t) {
-      const float4 c = stage[warp][t];
-      const float cross =
-          __fadd_rn(__fadd_rn(__fmul_rn(q.x, c.x), __fmul_rn(q.y, c.y)), __fmul_rn(q.z, c.z));
-      const float d2 = __fsub_rn(__fadd_rn(q.w, c.w), __fmul_rn(2.f, cross));
-      if (d2 < thr) {  // +inf and nan are never taken; the clamp as torch.clamp_min
-        const float v = fmaxf(d2, 0.f);
-        int j = k - 1;
-        float prev;
-        while (j > 0 && (prev = buf[(j - 1) * stride]) > v) {
-          buf[j * stride] = prev;
-          --j;
+    const int n_in = min(kGroup, S - g * kGroup);
+    int u = 0;
+    for (int t = 0; t < n_in; ++t) {
+      int r = t;
+      if (skip && g < g0) {
+        r = n_in - 1 - t;
+      } else if (skip && g == g0) {
+        do {
+          const int d = (u + 1) >> 1;
+          r = r0 + ((u & 1) ? d : -d);
+          ++u;
+        } while (r < 0 || r >= n_in);
+      }
+      if (!((marks >> r) & 1u)) continue;
+      if (skip) {
+        ++tests;
+        const float4 lo = sbox[r][0], hi = sbox[r][1];
+        const float mm = margin(lo.w);
+        bool need = false;
+#pragma unroll
+        for (int j = 0; j < kQ; ++j) {
+          const float3 q = make_float3(qx[j], qy[j], qz[j]);
+          need |= live[j] && !(gap2(q, q, lo, hi) > __fadd_rn(lane_t(thr[j], qa[j]), mm));
         }
-        buf[j * stride] = v;
-        thr = buf[(k - 1) * stride];
+        if (!__any_sync(kFull, need)) continue;
+      }
+      ++loads;
+      const float4 c = cand[(g * kGroup + r) * kSub + lane];
+      bool keep = true;
+      if (skip) {
+        const float tm = warp_tmax_lk(thr, qa, live);
+        keep = c.w < CUDART_INF_F && !(gap2(qlo, qhi, c, c) > __fadd_rn(tm, margin(c.w)));
+      }
+      unsigned todo = __ballot_sync(kFull, keep);
+      if (!todo) continue;
+      pairs_near += static_cast<unsigned long long>(__popc(todo)) * kWarpQueries;
+      __syncwarp();
+      stage[lane] = c;
+      __syncwarp();
+      while (todo) {
+        const float4 cc = stage[__ffs(todo) - 1];
+        todo &= todo - 1;
+#pragma unroll
+        for (int j = 0; j < kQ; ++j) {
+          const float cross = __fadd_rn(__fadd_rn(__fmul_rn(qx[j], cc.x), __fmul_rn(qy[j], cc.y)),
+                                        __fmul_rn(qz[j], cc.z));
+          const float d2 = __fsub_rn(__fadd_rn(qs[j], cc.w), __fmul_rn(2.f, cross));
+          if (d2 < thr[j])
+            sd_kselect::add(reg[j], qb + 32 * j, kWarpQueries, m, cnt[j], thr[j], at[j],
+                            fmaxf(d2, 0.f));
+        }
       }
     }
   };
 
-  const int own = (blockIdx.x * kThreads + warp * 32) / kSub, g0 = own / kGroup;
   if (!skip) {
-    for (int si = 0; si < S; ++si) scan(si);
+    for (int g = 0; g < G; ++g) visit_group(g);
   } else {
-    for (int u = 0; u < 2 * G; ++u) {  // the groups outward: g0, g0 + 1, g0 - 1, ...
-      const int d = (u + 1) >> 1;
-      const int g = g0 + ((u & 1) ? d : -d);
-      if (g < 0 || g >= G) continue;
-      if (g != g0) {
-        const float4 lo = grp[2 * g], hi = grp[2 * g + 1];
-        const bool need = act && !(lo.x > hi.x) &&
-                          !(gap2(q3, q3, lo, hi) > __fadd_rn(lane_t(thr, qa), margin(lo.w)));
-        if (!__any_sync(kFull, need)) continue;
-      }
-      const int first = g * kGroup, n_in = min(kGroup, S - first);
-      if (g == g0) {  // from the own subtile outward
-        for (int m = 0, done = 0; done < n_in; ++m) {
-          const int dd = (m + 1) >> 1;
-          const int r = own - first + ((m & 1) ? dd : -dd);
-          if (r < 0 || r >= n_in) continue;
-          ++done;
-          scan(first + r);
+    visit_group(g0);
+    bool go = G > 1;
+    if (go) {  // leaving the own group: defer the far queries (their row and thr)
+      unsigned e[kQ];
+      int tot = 0, n = 0;
+#pragma unroll
+      for (int j = 0; j < kQ; ++j) {
+        e[j] = (__float_as_uint(thr[j]) >> 23) & 0xFFu;
+        if (act[j]) {
+          tot += static_cast<int>(e[j]);
+          n += 1;
         }
-      } else {  // from the side facing the own group
-        for (int t = 0; t < n_in; ++t) scan(first + (g < g0 ? n_in - 1 - t : t));
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+        tot += __shfl_xor_sync(kFull, tot, o);
+        n += __shfl_xor_sync(kFull, n, o);
+      }
+#pragma unroll
+      for (int j = 0; j < kQ; ++j) {
+        const bool dfr = act[j] && static_cast<int>(e[j]) * n > tot + kDeferExp * n;
+        deferred += __popc(__ballot_sync(kFull, dfr));
+        if (dfr) {
+          const int slot = atomicAdd(sc.ndef, 1);
+          sc.drow[slot] = b * Cp + q0 + 32 * j + lane;
+          sc.dthr[slot] = thr[j];
+          live[j] = false;
+          thr[j] = -CUDART_INF_F;
+        }
+      }
+      go = __any_sync(kFull, live[0] || live[1]);
+      if (go) query_box(qx, qy, qz, live, qlo, qhi);
+    }
+    const int first = r0 >= kGroup / 2 ? 1 : -1;
+    const int a_side = first > 0 ? G - 1 - g0 : g0, b_side = G - 1 - a_side;
+    const int pairs = min(a_side, b_side);
+    for (int p0 = 1; go && p0 < G; p0 += 32) {
+      const float tmax = warp_tmax_lk(thr, qa, live);
+      const int q = p0 - 1 + lane;
+      int g = -1;
+      if (q < G - 1)
+        g = q < 2 * pairs ? g0 + ((q & 1) ? -first : first) * (q / 2 + 1)
+                          : g0 + (a_side > b_side ? first : -first) * (q - pairs + 1);
+      bool gmark = false;
+      if (g >= 0) {
+        const float4 glo = grp[2 * g], ghi = grp[2 * g + 1];
+        gmark = !(glo.x > ghi.x) && !(gap2(qlo, qhi, glo, ghi) > __fadd_rn(tmax, margin(glo.w)));
+      }
+      unsigned gm = __ballot_sync(kFull, gmark);
+      while (gm) {
+        const int l = __ffs(gm) - 1;
+        gm &= gm - 1;
+        visit_group(__shfl_sync(kFull, g, l));
       }
     }
   }
-  if (row < C) {
+#pragma unroll
+  for (int j = 0; j < kQ; ++j) {
+    const int row = q0 + 32 * j + lane;
+    if (row >= C || (act[j] && !live[j])) continue;  // a deferred row is the far walk's
     float result = CUDART_INF_F;
-    if (act) {  // the mean of the finite entries' roots, ascending
-      float acc = 0.f, cnt = 0.f;
-      for (int t = 0; t < k; ++t) {
-        const float v = buf[t * stride];
-        if (!(v < CUDART_INF_F)) break;
-        acc = __fadd_rn(acc, __fsqrt_rn(v));
-        cnt += 1.f;
+    if (act[j]) {  // the mean of the finite values held: the registers', then the buffer's
+      float acc = 0.f, n = 0.f;
+#pragma unroll
+      for (int t = 0; t < sd_kselect::kReg; ++t) {
+        if (reg[j][t] < CUDART_INF_F) {
+          acc = __fadd_rn(acc, __fsqrt_rn(reg[j][t]));
+          n += 1.f;
+        }
       }
-      result = __fdiv_rn(acc, fmaxf(cnt, 1.f));
+      float* p = qb + 32 * j;
+      sd_kselect::sort(p, kWarpQueries, cnt[j]);
+      for (int t = 0; t < cnt[j]; ++t) acc = __fadd_rn(acc, __fsqrt_rn(p[t * kWarpQueries]));
+      result = __fdiv_rn(acc, fmaxf(n + static_cast<float>(cnt[j]), 1.f));
     }
-    out_all[static_cast<size_t>(b) * C + row] = result;
+    out[row] = result;
   }
-  if (lane == 0) atomicAdd(sc.stats + kPairsNear, n_pairs);
+  if (lane == 0) {
+    atomicAdd(sc.stats + kPairsNear, pairs_near);
+    atomicAdd(sc.stats + kLoads, loads);
+    atomicAdd(sc.stats + kTests, tests);
+    atomicAdd(sc.stats + kDeferred, deferred);
+  }
+}
+
+// #values of the sorted p[0 .. n) below v (lower) or at most v (upper)
+__device__ __forceinline__ int count_below(const float* p, int n, float v, bool upper) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (upper ? p[mid] <= v : p[mid] < v)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// The warp's k smallest of the sorted A[0 .. k) and the pending P[0 .. np)
+// into A2, ascending: P sorted by a bitonic network (padded with +inf to a
+// power of two), then each value goes to its rank in the merged order
+// (A's before P's on a tie), the ranks below k kept.
+__device__ __forceinline__ void lk_merge(const float* A, float* A2, float* P, int np, int k,
+                                         int lane) {
+  int n = 1;
+  while (n < np) n <<= 1;
+  for (int i = np + lane; i < n; i += 32) P[i] = CUDART_INF_F;
+  __syncwarp();
+  for (int size = 2; size <= n; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = lane; t < n / 2; t += 32) {
+        const int lo = (t / stride) * 2 * stride + t % stride, hi = lo + stride;
+        const float x = P[lo], y = P[hi];
+        if ((x > y) == ((lo & size) == 0)) {
+          P[lo] = y;
+          P[hi] = x;
+        }
+      }
+      __syncwarp();
+    }
+  }
+  for (int i = lane; i < k; i += 32) {
+    const float a = A[i];
+    const int r = i + count_below(P, np, a, false);
+    if (r < k) A2[r] = a;
+  }
+  for (int j = lane; j < np; j += 32) {
+    const float v = P[j];
+    const int r = j + count_below(A, k, v, true);
+    if (r < k) A2[r] = v;
+  }
+  __syncwarp();
+}
+
+// The far walk for k > 32: one warp a deferred query, as
+// exact_knn_far_kernel (groups 32 at a time, then their subtiles, lanes
+// over the candidates, eight subtiles' loads in flight) with the own group
+// included, from the near walk's thr as an inclusive bound T: a candidate
+// with d2 <= T (never +inf or nan) is appended to the warp's pending list
+// (a ballot), which is merged into the warp's sorted k smallest A
+// (lk_merge) when it could overflow and after each group; then T drops to
+// A[k-1] once A is full. The warp's A, A2 and P (2 k + kPend floats) live
+// in dynamic shared memory, or (Shared = false) in the scratch.
+template <bool Shared>
+__global__ void __launch_bounds__(kThreads) exact_knn_lk_far_kernel(
+    float* __restrict__ out_all, Scratch sc, int C, int S, int G, int k,
+    float* __restrict__ gwork) {
+  extern __shared__ float lk_far_smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = gridDim.x * kWarps;
+  const int Cp = S * kSub;
+  const size_t per = 2 * static_cast<size_t>(k) + kPend;
+  float* work = Shared ? lk_far_smem + warp * per
+                       : gwork + (static_cast<size_t>(blockIdx.x) * kWarps + warp) * per;
+  float* A = work;
+  float* A2 = work + k;
+  float* P = work + 2 * static_cast<size_t>(k);
+  const unsigned below = (1u << lane) - 1u;
+  const int n = *sc.ndef;
+  unsigned long long pairs = 0;
+  for (int i = blockIdx.x * kWarps + warp; i < n; i += n_warps) {
+    const int id = sc.drow[i];
+    const int b = id / Cp, row = id - b * Cp;
+    const float4* __restrict__ cand = sc.cand + static_cast<size_t>(b) * Cp;
+    const float4* __restrict__ sub = sc.sub + static_cast<size_t>(b) * S * 2;
+    const float4* __restrict__ grp = sc.grp + static_cast<size_t>(b) * G * 2;
+    const float4 q = cand[row];
+    const float3 q3 = make_float3(q.x, q.y, q.z);
+    const float qa = margin(q.w);
+    float T = fminf(sc.dthr[i], FLT_MAX);
+    for (int t = lane; t < k; t += 32) A[t] = CUDART_INF_F;
+    __syncwarp();
+    int np = 0;
+    auto merge = [&]() {
+      lk_merge(A, A2, P, np, k, lane);
+      float* t = A;
+      A = A2;
+      A2 = t;
+      np = 0;
+      T = fminf(T, A[k - 1]);
+    };
+    for (int base = 0; base < G; base += 32) {
+      const int gi = base + lane;
+      bool need_g = false;
+      if (gi < G) {
+        const float4 lo = grp[2 * gi], hi = grp[2 * gi + 1];
+        need_g = !(lo.x > hi.x) &&
+                 !(gap2(q3, q3, lo, hi) > __fadd_rn(lane_t(T, qa), margin(lo.w)));
+      }
+      unsigned gmask = __ballot_sync(kFull, need_g);
+      while (gmask) {
+        const int g = base + __ffs(gmask) - 1;
+        gmask &= gmask - 1;
+        const int si = g * kGroup + lane;
+        bool need_s = false;
+        if (si < S) {
+          const float4 lo = sub[2 * si], hi = sub[2 * si + 1];
+          need_s = !(lo.x > hi.x) &&
+                   !(gap2(q3, q3, lo, hi) > __fadd_rn(lane_t(T, qa), margin(lo.w)));
+        }
+        unsigned smask = __ballot_sync(kFull, need_s);
+        pairs += static_cast<unsigned long long>(__popc(smask)) * kSub;
+        while (smask) {
+          if (np > kPend - kInFlight * 32) merge();
+          float4 c[kInFlight];
+#pragma unroll
+          for (int v = 0; v < kInFlight; ++v) {
+            c[v] = make_float4(0.f, 0.f, 0.f, CUDART_INF_F);  // none left: d2 = +inf
+            if (smask) {
+              c[v] = cand[(g * kGroup + __ffs(smask) - 1) * kSub + lane];
+              smask &= smask - 1;
+            }
+          }
+#pragma unroll
+          for (int v = 0; v < kInFlight; ++v) {
+            const float cross = __fadd_rn(__fadd_rn(__fmul_rn(q.x, c[v].x), __fmul_rn(q.y, c[v].y)),
+                                          __fmul_rn(q.z, c[v].z));
+            const float d2 = __fsub_rn(__fadd_rn(q.w, c[v].w), __fmul_rn(2.f, cross));
+            const bool take = d2 <= T;  // T is finite: +inf and nan fail
+            const unsigned bal = __ballot_sync(kFull, take);
+            if (take) P[np + __popc(bal & below)] = fmaxf(d2, 0.f);
+            np += __popc(bal);
+          }
+        }
+        if (np) merge();  // after each group: T is the k-th of all seen below it
+      }
+    }
+    // the mean of A's finite values, ascending
+    float acc = 0.f, cnt = 0.f;
+    for (int t = 0; t < k; ++t) {
+      const float v = A[t];
+      if (!(v < CUDART_INF_F)) break;
+      acc = __fadd_rn(acc, __fsqrt_rn(v));
+      cnt += 1.f;
+    }
+    if (lane == 0) out_all[static_cast<size_t>(b) * C + row] = __fdiv_rn(acc, fmaxf(cnt, 1.f));
+    __syncwarp();  // every lane has read A before the next query resets it
+  }
+  if (lane == 0 && pairs > 0) atomicAdd(sc.stats + kPairsFar, pairs);
+}
+
+template <typename Kernel>
+int set_smem(Kernel kernel, int bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
+
+template <bool Shared>
+int launch_lk(const uint8_t* valid, Scratch sc, float* out, int B, int C, int S, int G, int k,
+              int skip, int warps, float* gnear, float* gfar, cudaStream_t stream) {
+  const int near_smem =
+      warps * 3 * kSub * 16 + (Shared ? warps * kWarpQueries * (k - sd_kselect::kReg) * 4 : 0);
+  const int far_smem = Shared ? kWarps * (2 * k + kPend) * 4 : 0;
+  int err = set_smem(exact_knn_lk_kernel<Shared>, near_smem);
+  if (err) return err;
+  const int per_block = warps * kWarpQueries;
+  const dim3 grid((S * kSub + per_block - 1) / per_block, B);
+  exact_knn_lk_kernel<Shared><<<grid, 32 * warps, near_smem, stream>>>(valid, out, sc, C, S, G, k,
+                                                                      skip, gnear);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  err = set_smem(exact_knn_lk_far_kernel<Shared>, far_smem);
+  if (err) return err;
+  exact_knn_lk_far_kernel<Shared><<<kFarBlocks, kThreads, far_smem, stream>>>(out, sc, C, S, G, k,
+                                                                             gfar);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int launch_large(const float* xyz, const uint8_t* valid, Scratch sc, float* out, int B, int C,
-                 int S, int G, int k, int skip, cudaStream_t stream) {
+                 int S, int G, int k, int skip, int warps, int shared, float* gnear, float* gfar,
+                 cudaStream_t stream) {
   exact_knn_prep_kernel<<<dim3(G, B), kPrepThreads, 0, stream>>>(xyz, valid, sc, C, S, G);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S * kSub + kThreads - 1) / kThreads, B);
-  exact_knn_large_kernel<<<grid, kThreads, 0, stream>>>(valid, out, sc, C, S, G, k, skip);
-  return static_cast<int>(cudaGetLastError());
+  return shared ? launch_lk<true>(valid, sc, out, B, C, S, G, k, skip, warps, gnear, gfar, stream)
+                : launch_lk<false>(valid, sc, out, B, C, S, G, k, skip, warps, gnear, gfar, stream);
 }
 
 template <int K>
@@ -684,13 +1023,16 @@ int launch(const float* xyz, const uint8_t* valid, Scratch sc, float* out, int B
 }  // namespace
 
 // scratch: float32 words laid out as ops/exact_knn.py::scratch_words says;
-// k >= 1 (1..32: the buffers' depth is a template parameter; above: the
-// large-k kernel); skip = 0 scans every candidate.
+// k >= 1 (1..32: the walks with the buffers' depth a template parameter;
+// above: the large-k walks, warps (1, 2 or 4) a near-walk block, their
+// buffers in dynamic shared memory or, shared = 0, in the scratch); skip = 0
+// scans every candidate.
 extern "C" int sd_exact_knn(const void* xyz, const void* valid, void* scratch, void* out, int B,
-                            int C, int k, int skip, void* stream) {
+                            int C, int k, int skip, int warps, int shared, void* stream) {
   const int S = (C + kSub - 1) / kSub, G = (S + kGroup - 1) / kGroup;
   const size_t Cp = static_cast<size_t>(S) * kSub;
-  if (B < 1 || B > 65535 || C < 1 || k < 1 || static_cast<size_t>(B) * Cp >= (1u << 31))
+  if (B < 1 || B > 65535 || C < 1 || k < 1 || static_cast<size_t>(B) * Cp >= (1u << 31) ||
+      warps < 1 || warps > kWarps)
     return static_cast<int>(cudaErrorInvalidValue);
   float* w = static_cast<float*>(scratch);
   Scratch sc;
@@ -700,10 +1042,27 @@ extern "C" int sd_exact_knn(const void* xyz, const void* valid, void* scratch, v
   w += static_cast<size_t>(B) * S * 8;
   sc.grp = reinterpret_cast<float4*>(w);
   w += static_cast<size_t>(B) * G * 8;
-  sc.dbuf = w;
-  w += B * Cp * static_cast<size_t>(k);
-  sc.drow = reinterpret_cast<int*>(w);
-  w += B * Cp;
+  float *gnear = nullptr, *gfar = nullptr;
+  if (k <= 32) {
+    sc.dbuf = w;
+    w += B * Cp * static_cast<size_t>(k);
+    sc.drow = reinterpret_cast<int*>(w);
+    w += B * Cp;
+    sc.dthr = nullptr;
+  } else {
+    sc.dbuf = nullptr;
+    sc.drow = reinterpret_cast<int*>(w);
+    w += B * Cp;
+    sc.dthr = w;
+    w += B * Cp;
+    if (!shared) {
+      const size_t per_block = static_cast<size_t>(warps) * kWarpQueries;
+      gnear = w;
+      w += B * ((Cp + per_block - 1) / per_block) * per_block * (k - sd_kselect::kReg);
+      gfar = w;
+      w += static_cast<size_t>(kFarBlocks) * kWarps * (2 * static_cast<size_t>(k) + kPend);
+    }
+  }
   sc.ndef = reinterpret_cast<int*>(w);
   sc.stats = reinterpret_cast<unsigned long long*>(w + 6);
   const auto x = static_cast<const float*>(xyz);
@@ -721,6 +1080,6 @@ extern "C" int sd_exact_knn(const void* xyz, const void* valid, void* scratch, v
     SD_CASE(30) SD_CASE(31) SD_CASE(32)
 #undef SD_CASE
     default:
-      return launch_large(x, v, sc, o, B, C, S, G, k, skip, s);
+      return launch_large(x, v, sc, o, B, C, S, G, k, skip, warps, shared, gnear, gfar, s);
   }
 }

@@ -48,11 +48,19 @@
 //   whose dynamic shared memory fits the card's opt-in limit: the
 //   (2 ty + wh - 1) x (tx + ww - 1) float4 halo, and for k > 32 the buffers;
 // - the visiting order is a table the wrapper builds on the host once per
-//   window (ops/knn_grid.py::visit_order, the rule of Order below) and
-//   passes in global memory, one int (dy << 16 | dx & 0xffff) an offset;
-//   every lane reads the same entry, so each read is one broadcast;
+//   window and block width (ops/knn_grid.py::general_order): the order of
+//   Order below cut into the offsets in both pixels' windows, then the
+//   first pixel's top row, then the second pixel's bottom row, each part
+//   nearest first, so the loops carry no row test; each entry is the
+//   candidate's offset in the halo tile (one add), read once per thread
+//   as a broadcast; the exact path's tests are
+//   compiled out of the common path (two instantiations of the scan);
 // - the k smallest stay in registers for k <= 32 (a template over 1..32);
-//   above that in shared memory, k words a pixel, insertion from the end;
+//   above that the 32 smallest stay in registers and the other k - 32 in
+//   shared memory, unsorted, their largest tracked (csrc/kselect.cuh): a
+//   value costs every lane the same whatever its pixel (no lane's sort or
+//   shift holds the warp); a pixel that kept fewer than k values below
+//   +inf sums to +inf, as its plain version's k smallest hold +inf;
 // - the exact path as above, nan once fewer than k of the window's wh * ww
 //   values are not nan.
 #include <cuda_runtime.h>
@@ -60,7 +68,10 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <type_traits>
 #include <utility>
+
+#include "kselect.cuh"
 
 namespace {
 
@@ -212,16 +223,20 @@ struct GeneralArgs {
   const float* pts;
   const uint8_t* valid;
   float* out;
-  const int* order;  // the visiting order, (dy << 16) | (dx & 0xffff) an offset
-  int n_order, H, W, k, wh, ww, ph, pw;
+  // the visiting order as halo offsets (float4 units) from a thread's first
+  // pixel: n_both offsets in both pixels' windows, then the ww of the first
+  // pixel's top row, then the ww of the second pixel's bottom row
+  const int* order;
+  int n_both, H, W, k, wh, ww, ph, pw;
   int sh, sw;  // the halo tile
 };
 
-// K > 0: k == K, the buffers in registers; K == 0: any k, in shared memory
-// after the halo, entry j of pixel r of thread t at [(j * 2 + r) * n + t]
+// K > 0: k == K, the buffers in registers; K == 0: any k > 32, kselect.cuh's
+// 32 in registers and k - 32 in shared memory after the halo, entry j of
+// pixel r of thread t at [(j * 2 + r) * n + t]
 template <int K>
 __global__ void __launch_bounds__(256) knn_grid_general_kernel(GeneralArgs a) {
-  constexpr int kBuf = K > 0 ? K : 1;  // the register buffer's depth
+  constexpr int kBuf = K > 0 ? K : sd_kselect::kReg;  // the register buffer's depth
   extern __shared__ float4 halo[];
   const int n_threads = blockDim.x * blockDim.y;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -247,12 +262,15 @@ __global__ void __launch_bounds__(256) knn_grid_general_kernel(GeneralArgs a) {
   const bool exact_path = __syncthreads_or(nonfinite) != 0;
 
   const int k = K > 0 ? K : a.k;
+  const int m = k - sd_kselect::kReg;  // K == 0: the values past the registers
   const int gx = x0 + threadIdx.x, gy0 = y0 + threadIdx.y * kRows;
   const float4* row0 = halo + (threadIdx.y * kRows + a.ph) * a.sw + threadIdx.x + a.pw;
   float* sbuf = reinterpret_cast<float*>(halo + a.sh * a.sw) + tid;
   float4 c[kRows];
   float rbuf[kRows][kBuf];
-  float thr[kRows];  // the buffer's largest; -inf: not a pixel of this thread
+  float thr[kRows];  // the k-th smallest; +inf until k were kept; -inf: not a pixel of this thread
+  int cnt[kRows];    // K == 0: the values the shared buffer holds
+  int at[kRows];     // K == 0: the slot of its largest
   int n_nan[kRows];
   bool any = false;
 #pragma unroll
@@ -261,33 +279,26 @@ __global__ void __launch_bounds__(256) knn_grid_general_kernel(GeneralArgs a) {
     const bool mine = gx < a.W && gy0 + r < a.H && c[r].w == 0.f;
     any |= mine;
     thr[r] = mine ? CUDART_INF_F : -CUDART_INF_F;
+    cnt[r] = 0;
+    at[r] = 0;
     n_nan[r] = 0;
-    if (K > 0) {
 #pragma unroll
-      for (int j = 0; j < kBuf; ++j) rbuf[r][j] = CUDART_INF_F;
-    } else {
-      for (int j = 0; j < k; ++j) sbuf[(j * kRows + r) * n_threads] = CUDART_INF_F;
-    }
+    for (int j = 0; j < kBuf; ++j) rbuf[r][j] = CUDART_INF_F;
   }
-  const int lo = -a.ph, hi = a.wh - 1 - a.ph;  // a pixel's own window rows
-  for (int i = 0; any && i < a.n_order; ++i) {
-    const int e = __ldg(a.order + i);
-    const int dy = e >> 16, dx = static_cast<int16_t>(e & 0xffff);
-    const float4 s = row0[dy * a.sw + dx];
-    if (exact_path && s.w != 0.f) continue;  // an invalid candidate: never taken
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (dy - r < lo || dy - r > hi) continue;
+  // the scan, the exact path's tests compiled out of the other
+  auto scan = [&](auto exact_tag) {
+    constexpr bool Exact = decltype(exact_tag)::value;
+    auto take = [&](int r, const float4& s) {
       const float ex = __fsub_rn(c[r].x, s.x);
       const float ey = __fsub_rn(c[r].y, s.y);
       const float ez = __fsub_rn(c[r].z, s.z);
       float d2 = __fadd_rn(__fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ey, ey)), __fmul_rn(ez, ez));
-      if (!exact_path)
+      if (!Exact)
         d2 = __fadd_rn(d2, s.w);
       else if (isnan(d2))
         ++n_nan[r];  // nan fails the compare below
-      if (!(d2 < thr[r])) continue;
-      if (K > 0) {
+      if (!(d2 < thr[r])) return;
+      if constexpr (K > 0) {
         float cand = d2;
 #pragma unroll
         for (int j = 0; j < kBuf; ++j) {
@@ -297,18 +308,35 @@ __global__ void __launch_bounds__(256) knn_grid_general_kernel(GeneralArgs a) {
         }
         thr[r] = rbuf[r][kBuf - 1];
       } else {
-        float* bp = sbuf + r * n_threads;
-        const int stride = kRows * n_threads;
-        int j = k - 1;
-        float prev;
-        while (j > 0 && (prev = bp[(j - 1) * stride]) > d2) {
-          bp[j * stride] = prev;
-          --j;
-        }
-        bp[j * stride] = d2;
-        thr[r] = bp[(k - 1) * stride];
+        sd_kselect::add(rbuf[r], sbuf + r * n_threads, kRows * n_threads, m, cnt[r], thr[r], at[r],
+                        d2);
       }
+    };
+    const int* order = a.order;
+    for (int i = 0; i < a.n_both; ++i) {
+      const float4 s = row0[__ldg(order + i)];
+      if (Exact && s.w != 0.f) continue;  // an invalid candidate: never taken
+      take(0, s);
+      take(1, s);
     }
+    order += a.n_both;
+    for (int i = 0; i < a.ww; ++i) {
+      const float4 s = row0[__ldg(order + i)];
+      if (Exact && s.w != 0.f) continue;
+      take(0, s);
+    }
+    order += a.ww;
+    for (int i = 0; i < a.ww; ++i) {
+      const float4 s = row0[__ldg(order + i)];
+      if (Exact && s.w != 0.f) continue;
+      take(1, s);
+    }
+  };
+  if (any) {
+    if (exact_path)
+      scan(std::true_type{});
+    else
+      scan(std::false_type{});
   }
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
@@ -316,12 +344,16 @@ __global__ void __launch_bounds__(256) knn_grid_general_kernel(GeneralArgs a) {
     float result = CUDART_INF_F;
     if (c[r].w == 0.f) {
       float acc = 0.f;
-      if (K > 0) {
 #pragma unroll
-        for (int j = 0; j < kBuf; ++j) acc = __fadd_rn(acc, __fsqrt_rn(rbuf[r][j]));
-      } else {
-        for (int j = 0; j < k; ++j)
-          acc = __fadd_rn(acc, __fsqrt_rn(sbuf[(j * kRows + r) * n_threads]));
+      for (int j = 0; j < kBuf; ++j) acc = __fadd_rn(acc, __fsqrt_rn(rbuf[r][j]));
+      if (K == 0) {
+        if (cnt[r] == m) {  // the registers' 32, then the buffer's m ascending
+          float* sp = sbuf + r * n_threads;
+          sd_kselect::sort(sp, kRows * n_threads, m);
+          for (int j = 0; j < m; ++j) acc = __fadd_rn(acc, __fsqrt_rn(sp[j * kRows * n_threads]));
+        } else {
+          acc = CUDART_INF_F;  // fewer than k below +inf: the k smallest hold +inf
+        }
       }
       result = n_nan[r] > a.wh * a.ww - k
                    ? CUDART_NAN_F
@@ -347,7 +379,8 @@ int launch_general(const GeneralArgs& a, int B, int tx, int ty, int smem, cudaSt
 
 extern "C" int sd_knn_grid(const void* pts, const void* valid, void* out, int B, int H, int W,
                            int k, int wh, int ww, void* stream) {
-  if (k != kK || wh != kWH || ww != kWW) return static_cast<int>(cudaErrorInvalidValue);
+  if (k != kK || wh != kWH || ww != kWW || B < 1 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 block(kTx, kTy);
   const dim3 grid((W + kTx - 1) / kTx, (H + kBh - 1) / kBh, B);
   knn_grid_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -360,21 +393,22 @@ extern "C" const char* sd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Any (k, wh, ww) with 1 <= k <= wh * ww: order holds n_order entries (the
-// wrapper's visit_order), the block is tx x ty threads (tx * ty <= 256) with
-// smem bytes of dynamic shared memory (the halo; for k > 32 also the
-// buffers, 2 * tx * ty * k floats).
+// Any (k, wh, ww) with 1 <= k <= wh * ww: order holds the (wh + 1) * ww halo
+// offsets of the wrapper's general_order (n_order), the block is tx x ty
+// threads (tx * ty <= 256) with smem bytes of dynamic shared memory (the
+// halo; for k > 32 also the buffers, 2 * tx * ty * (k - 32) floats).
 extern "C" int sd_knn_grid_general(const void* pts, const void* valid, void* out,
                                    const void* order, int n_order, int B, int H, int W, int k,
                                    int wh, int ww, int tx, int ty, int smem, void* stream) {
-  if (k < 1 || k > wh * ww || tx < 1 || ty < 1 || tx * ty > 256 || B < 1 || B > 65535)
+  if (k < 1 || k > wh * ww || tx < 1 || ty < 1 || tx * ty > 256 || B < 1 || B > 65535 ||
+      n_order != (wh + 1) * ww)
     return static_cast<int>(cudaErrorInvalidValue);
   GeneralArgs a;
   a.pts = static_cast<const float*>(pts);
   a.valid = static_cast<const uint8_t*>(valid);
   a.out = static_cast<float*>(out);
   a.order = static_cast<const int*>(order);
-  a.n_order = n_order;
+  a.n_both = (wh - 1) * ww;
   a.H = H;
   a.W = W;
   a.k = k;

@@ -43,6 +43,7 @@ NVCC_FLAGS = [
 ]
 
 NAMESPACE = "sd_torch"  # the dispatcher ops' namespace: torch.ops.sd_torch.*
+SMEM_OPTIN_BYTES = 227 * 1024  # an H100's opt-in shared memory a block, where the card cannot say
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,7 +54,7 @@ _SIGNATURES = {
     "sd_knn_grid_general": [_P, _P, _P, _P] + [_I] * 10 + [_P],
     "sd_mad_keep": [_P, _P, _P, _F, _F, _I, _P, _I, _I, _P],
     "sd_radius_counts": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
-    "sd_exact_knn": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "sd_exact_knn": [_P, _P, _P, _P] + [_I] * 6 + [_P],
 }
 
 
@@ -131,6 +132,13 @@ def library() -> ctypes.CDLL:
     lib.sd_error_string.argtypes = [ctypes.c_int]
     lib.sd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def smem_limit(device: torch.device) -> int:
+    """The bytes of shared memory a block may opt in to on ``device``."""
+    props = torch.cuda.get_device_properties(device)
+    return int(getattr(props, "shared_memory_per_block_optin", SMEM_OPTIN_BYTES))
 
 
 def stream_ptr(t: torch.Tensor) -> int:

@@ -22,10 +22,18 @@ depend on which candidates are skipped or in what order the rest are
 visited (the kept values are the multiset of the k smallest), so skipping
 changes no bit. ``skip=False`` scans every candidate in row order.
 
-For k > ``REGISTER_MAX_K`` the k smallest do not fit in registers: a fourth
-kernel takes the place of the two walks, one thread a query, its sorted
-buffer in the scratch, the same box tests against its own threshold. Its
-launches count in ``launches`` and in ``large_k_launches``.
+For k > ``REGISTER_MAX_K`` the k smallest do not fit in registers: two
+other kernels run the same schedule with each query's buffer in shared
+memory: its 32 smallest in registers as the walks keep theirs, the other
+k - 32 unsorted in shared memory with their largest tracked
+(``csrc/kselect.cuh``; ``large_k_layout`` picks the warps a block, and past
+k = 934 the scratch holds them); and a deferred
+query's far walk searches again from its near walk's k-th distance, merging
+the warp's candidates into its k smallest by rank. Their launches count in
+``launches`` and in ``large_k_launches``.
+
+The frames go in chunks of at most ``MAX_FRAMES`` whose padded rows stay
+below 2^31 (the kernels' row ids are 32-bit), one launch each.
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ import torch.nn.functional as F
 from . import _cuda
 from .pcl import valid_span
 
-REGISTER_MAX_K = 32  # the walks of csrc/exact_knn.cu take k = 1 .. 32; above: the large-k kernel
+REGISTER_MAX_K = 32  # the walks of csrc/exact_knn.cu take k = 1 .. 32; above: the large-k walks
 # csrc/exact_knn.cu's constants
 SUBTILE = 32  # candidates per box
 GROUP = 32  # subtiles per group box (1024 candidates)
@@ -53,6 +61,11 @@ MARGIN_THR = 2.0 ** -20
 # finishes it with the warp's 32 lanes over the candidates
 DEFER_EXP = 2
 STATS = ("pairs_near", "pairs_far", "subtiles_loaded", "subtile_tests", "deferred")
+MAX_FRAMES = 65535  # frames a launch (the grid's y extent)
+MAX_ROWS = 2 ** 31 - 1  # padded rows (B * 32 S) a launch: the deferred list's row ids
+FAR_BLOCKS = 264  # csrc/exact_knn.cu's far walks: blocks of 4 warps
+LK_PENDING = 512  # the large-k far walk's pending values a warp
+SMEM_OPTIN_BYTES = _cuda.SMEM_OPTIN_BYTES
 _PLAIN_BLOCK = 1024  # candidates per step of the plain version (bounds its memory)
 
 
@@ -120,14 +133,41 @@ def subtile_boxes(xyz: torch.Tensor, valid: torch.Tensor):
             torch.cat([g_lo, g_m, g_hi, torch.zeros_like(g_m)], -1))
 
 
-def scratch_words(b: int, c: int, k: int) -> int:
+def large_k_layout(k: int, smem_limit: int = SMEM_OPTIN_BYTES):
+    """(warps a block, buffers in shared memory) of the large-k near walk
+    (k > ``REGISTER_MAX_K``): the most warps (4, 2, 1) whose boxes, staged
+    candidates (1536 bytes a warp) and 64 buffers of the k - 32 values past
+    the registers a warp fit in ``smem_limit`` bytes, the far walk's 4 warps
+    of 2 k + ``LK_PENDING`` floats too; else 4 warps with the buffers in
+    the scratch."""
+    far = 4 * (2 * k + LK_PENDING) * 4
+    past = k - REGISTER_MAX_K
+    for warps in (4, 2, 1):
+        if warps * (3 * SUBTILE * 16 + WARP_QUERIES * past * 4) <= smem_limit and far <= smem_limit:
+            return warps, True
+    return 4, False
+
+
+def scratch_words(b: int, c: int, k: int, smem_limit: int = SMEM_OPTIN_BYTES) -> int:
     """float32 words of the kernels' scratch, in this order: the candidates
     as (x, y, z, |c|^2) (B, 32 S, 4), the subtile boxes (B, S, 8), the group
-    boxes (B, G, 8), the deferred queries' buffers (B * 32 S, k; for k > 32
-    every query's, (k, B * 32 S)) and rows (B * 32 S int32), and 8 words of
-    counters (the deferred count and the 64-bit ``STATS``)."""
+    boxes (B, G, 8); for k <= 32 the deferred queries' buffers (B * 32 S, k)
+    and rows (B * 32 S int32); for k > 32 the deferred queries' rows and
+    k-th distances (B * 32 S each) and, where ``large_k_layout`` puts the
+    buffers in the scratch, the near walk's (64 (k - 32) a warp) and the far
+    walk's (``FAR_BLOCKS`` x 4 warps x (2 k + ``LK_PENDING``)); then 16
+    words of counters (the deferred count and the 64-bit ``STATS``)."""
     s, cp, g = _sizes(c)
-    return b * (cp * 4 + s * 8 + g * 8 + cp * k + cp) + 16
+    words = b * (cp * 4 + s * 8 + g * 8) + 16
+    if k <= REGISTER_MAX_K:
+        return words + b * (cp * k + cp)
+    warps, shared = large_k_layout(k, smem_limit)
+    words += 2 * b * cp
+    if not shared:
+        per_block = warps * WARP_QUERIES
+        words += (b * -(-cp // per_block) * per_block * (k - REGISTER_MAX_K)
+                  + FAR_BLOCKS * 4 * (2 * k + LK_PENDING))
+    return words
 
 
 def scratch_boxes(scratch: torch.Tensor, b: int, c: int):
@@ -147,14 +187,29 @@ def scratch_stats(scratch: torch.Tensor) -> dict:
     return dict(zip(STATS, counts))
 
 
-def _launch(xyz, valid, k, skip, scratch, out) -> None:
-    """The three kernels on checked tensors (preparation, near walk, far
-    walk), one launch each for the batch."""
-    b, c = valid.shape
+def _launch(xyz, valid, k, skip, scratch, out, smem_limit=SMEM_OPTIN_BYTES, frames=None) -> None:
+    """The kernels on checked tensors (preparation, near walk, far walk),
+    one launch each for frames ``frames`` = (first, count), all by default;
+    ``scratch`` holds ``scratch_words(count, C, k, smem_limit)`` words."""
+    c = valid.shape[1]
+    f0, n = frames or (0, valid.shape[0])
+    warps, shared = large_k_layout(k, smem_limit) if k > REGISTER_MAX_K else (4, True)
+    at = f0 * c  # float32 xyz (3 a row), bool valid, float32 out
     err = _cuda.library().sd_exact_knn(
-        xyz.data_ptr(), valid.data_ptr(), scratch.data_ptr(), out.data_ptr(), b, c, k, int(skip),
-        _cuda.stream_ptr(xyz))
+        xyz.data_ptr() + 12 * at, valid.data_ptr() + at, scratch.data_ptr(),
+        out.data_ptr() + 4 * at, n, c, k, int(skip), warps, int(shared), _cuda.stream_ptr(xyz))
     _cuda.check(err, "knn_mean_distances_exact")
+
+
+def max_frames(c: int) -> int:
+    """Frames of capacity ``c`` a launch takes: ``MAX_FRAMES``, fewer where
+    their padded rows would reach 2^31; raises ValueError, naming the
+    limit, where not even one frame's do."""
+    cp = _sizes(c)[1]
+    if cp > MAX_ROWS:
+        raise ValueError(f"a frame of {c} rows pads to {cp}, over the kernels' {MAX_ROWS} rows "
+                         "a launch")
+    return min(MAX_FRAMES, MAX_ROWS // cp)
 
 
 @torch.library.custom_op(f"{_cuda.NAMESPACE}::exact_knn", mutates_args=(), device_types="cpu")
@@ -171,24 +226,26 @@ def _(xyz, valid, k, skip):
 
 @_exact_knn_op.register_kernel("cuda")
 def _(xyz, valid, k, skip):
-    """The kernels, or raise."""
+    """The kernels, the frames in chunks of at most ``max_frames``, or raise."""
     if k < 1:
         raise ValueError(f"k must be at least 1, got k={k}")
     if xyz.ndim != 3 or xyz.shape[-1] != 3:
         raise ValueError(f"xyz must be (B, C, 3), got {tuple(xyz.shape)}")
     b, c, _ = xyz.shape
-    if b > 65535:
-        raise ValueError(f"at most 65535 frames a launch, got {b}")
     _cuda.require(xyz, "xyz", torch.float32)
     _cuda.require(valid, "valid", torch.bool, (b, c))
     out = torch.empty((b, c), dtype=torch.float32, device=xyz.device)
     if out.numel() == 0:
         return out
-    scratch = torch.empty(scratch_words(b, c, k), dtype=torch.float32, device=xyz.device)
-    _launch(xyz, valid, k, skip, scratch, out)
-    knn_mean_distances_exact.launches += 1
-    if k > REGISTER_MAX_K:
-        knn_mean_distances_exact.large_k_launches += 1
+    chunk = max_frames(c)
+    limit = _cuda.smem_limit(xyz.device)
+    scratch = torch.empty(scratch_words(min(b, chunk), c, k, limit), dtype=torch.float32,
+                          device=xyz.device)
+    for f0 in range(0, b, chunk):
+        _launch(xyz, valid, k, skip, scratch, out, limit, (f0, min(chunk, b - f0)))
+        knn_mean_distances_exact.launches += 1
+        if k > REGISTER_MAX_K:
+            knn_mean_distances_exact.large_k_launches += 1
     return out
 
 
@@ -199,9 +256,10 @@ def knn_mean_distances_exact(
     through the op ``sd_torch::exact_knn``. CPU tensors take the plain
     version; CUDA tensors launch the kernels (a preparation kernel, grid
     (G, B); the search, grid (ceil(C / BLOCK_QUERIES), B); the deferred
-    queries' kernel; for k > 32 the large-k kernel in place of the last two;
-    counted once in ``launches``, and in ``large_k_launches`` for k > 32)
-    or raise. ``skip=False`` scans every candidate in row order
+    queries' kernel; for k > 32 the large-k kernels in place of the last
+    two; once per chunk of ``max_frames(C)`` frames, counted in
+    ``launches``, and in ``large_k_launches`` for k > 32) at any B, or
+    raise. ``skip=False`` scans every candidate in row order
     (validation)."""
     return _exact_knn_op(xyz, valid, int(k), bool(skip))
 

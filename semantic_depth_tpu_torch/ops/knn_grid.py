@@ -20,9 +20,12 @@ The road chain's (k, window) = (KERNEL_K, KERNEL_WINDOW) launches a kernel
 specialised at compile time. Every other pair the plain version takes
 (1 <= k <= wh * ww, any window) launches the general kernel: the same
 scheme with the block shape from ``general_block``, the visiting order from
-``visit_order`` passed as a table, and the k smallest in registers up to
-k = 32, in shared memory above. Both count in ``launches``; the general
-kernel also in ``general_launches``.
+``general_order`` passed as a table of halo offsets (no row test in its
+loops), and the k smallest in registers up to k = 32; above, the 32
+smallest in registers and the other k - 32 unsorted in shared memory, their
+largest tracked (``csrc/kselect.cuh``). Both count in ``launches``; the general kernel
+also in ``general_launches``. The frames go in chunks of at most
+``MAX_FRAMES``, one launch each.
 """
 
 from __future__ import annotations
@@ -42,7 +45,8 @@ ROWS = 2  # vertically adjacent pixels a thread
 # the general kernel's block shapes (threads across, thread rows), largest
 # first: the first whose shared memory fits is taken
 GENERAL_BLOCKS = ((32, 8), (32, 4), (32, 2), (32, 1), (16, 1), (8, 1), (4, 1), (2, 1), (1, 1))
-SMEM_OPTIN_BYTES = 227 * 1024  # an H100's opt-in limit a block, where the card cannot say
+SMEM_OPTIN_BYTES = _cuda.SMEM_OPTIN_BYTES
+MAX_FRAMES = 65535  # frames a launch (the grid's z extent)
 
 
 def visit_order(window: Tuple[int, int]) -> List[Tuple[int, int]]:
@@ -57,36 +61,45 @@ def visit_order(window: Tuple[int, int]) -> List[Tuple[int, int]]:
     return sorted(offsets, key=lambda o: ((2 * o[0] - ROWS + 1) ** 2 + 4 * o[1] ** 2,) + o)
 
 
+def general_order(window: Tuple[int, int]):
+    """The general kernel's visiting order: ``visit_order`` cut into three
+    parts, each nearest first: the offsets in both pixels' windows (dy in
+    -(wh // 2) + 1 .. wh - 1 - wh // 2), the first pixel's top row (dy =
+    -(wh // 2)), the second pixel's bottom row (dy = wh - wh // 2)."""
+    wh, ww = window
+    top, bottom = -(wh // 2), wh - wh // 2
+    order = visit_order(window)
+    return ([o for o in order if top < o[0] < bottom], [o for o in order if o[0] == top],
+            [o for o in order if o[0] == bottom])
+
+
 @functools.lru_cache(maxsize=None)
-def _order_table(window: Tuple[int, int], device: torch.device) -> torch.Tensor:
-    """``visit_order`` packed for the kernel, one int32 (dy << 16) | (dx &
-    0xffff) an offset, on ``device``; built once per window and card."""
-    packed = [(dy << 16) | (dx & 0xFFFF) for dy, dx in visit_order(window)]
-    table = torch.tensor(packed, dtype=torch.int64).to(torch.int32)
-    return table.to(device)
+def _order_table(window: Tuple[int, int], tx: int, device: torch.device) -> torch.Tensor:
+    """``general_order`` as the kernel reads it: one int32 a candidate, its
+    offset dy * (tx + ww - 1) + dx in the halo tile of a block tx threads
+    wide, on ``device``; built once per window, block width and card."""
+    sw = tx + window[1] - 1
+    packed = [dy * sw + dx for part in general_order(window) for dy, dx in part]
+    return torch.tensor(packed, dtype=torch.int32).to(device)
 
 
 def general_block(k: int, window: Tuple[int, int], smem_limit: int = SMEM_OPTIN_BYTES):
     """(threads across, thread rows, dynamic shared memory bytes) of the
     general kernel's block: the first of ``GENERAL_BLOCKS`` whose float4
     halo (2 ty + wh - 1) x (tx + ww - 1), and for k > ``REGISTER_MAX_K``
-    its buffers (2 tx ty k floats), fit in ``smem_limit`` bytes. Raises
+    its buffers of the values past the registers (2 tx ty (k - 32)
+    floats), fit in ``smem_limit`` bytes. Raises
     ValueError, naming the limit, where not even one thread's fits."""
     wh, ww = window
     for tx, ty in GENERAL_BLOCKS:
         smem = (ROWS * ty + wh - 1) * (tx + ww - 1) * 16
         if k > REGISTER_MAX_K:
-            smem += ROWS * tx * ty * k * 4
+            smem += ROWS * tx * ty * (k - REGISTER_MAX_K) * 4
         if smem <= smem_limit:
             return tx, ty, smem
     raise ValueError(
         f"window {tuple(window)} with k={k}: one thread's halo and buffers need {smem} bytes of "
         f"shared memory, over the card's {smem_limit} bytes a block")
-
-
-def _smem_limit(device: torch.device) -> int:
-    props = torch.cuda.get_device_properties(device)
-    return int(getattr(props, "shared_memory_per_block_optin", SMEM_OPTIN_BYTES))
 
 
 def knn_mean_distances_grid_plain(
@@ -135,7 +148,7 @@ def _(points, valid, k, window):
 
 @_knn_grid_op.register_kernel("cuda")
 def _(points, valid, k, window):
-    """The kernel: one launch for the batch, or raise."""
+    """The kernel, one launch per ``MAX_FRAMES`` frames, or raise."""
     window = tuple(window)
     wh, ww = window
     if wh < 1 or ww < 1 or not 1 <= k <= wh * ww:
@@ -143,30 +156,31 @@ def _(points, valid, k, window):
     if points.ndim != 4 or points.shape[-1] != 3:
         raise ValueError(f"points must be (B, H, W, 3), got {tuple(points.shape)}")
     b, h, w, _ = points.shape
-    if b > 65535:
-        raise ValueError(f"at most 65535 frames a launch, got {b}")
     _cuda.require(points, "points", torch.float32)
     _cuda.require(valid, "valid", torch.bool, (b, h, w))
     out = torch.empty((b, h, w), dtype=torch.float32, device=points.device)
     if out.numel() == 0:
         return out
     lib = _cuda.library()
-    if (k, window) == (KERNEL_K, KERNEL_WINDOW):
-        err = lib.sd_knn_grid(
-            points.data_ptr(), valid.data_ptr(), out.data_ptr(), b, h, w, k, wh, ww,
-            _cuda.stream_ptr(points),
-        )
-        _cuda.check(err, "knn_mean_distances_grid")
-    else:
-        tx, ty, smem = general_block(k, window, _smem_limit(points.device))
-        order = _order_table(window, points.device)
-        err = lib.sd_knn_grid_general(
-            points.data_ptr(), valid.data_ptr(), out.data_ptr(), order.data_ptr(), order.numel(),
-            b, h, w, k, wh, ww, tx, ty, smem, _cuda.stream_ptr(points),
-        )
-        _cuda.check(err, "knn_mean_distances_grid (general)")
-        knn_mean_distances_grid.general_launches += 1
-    knn_mean_distances_grid.launches += 1
+    stream = _cuda.stream_ptr(points)
+    general = (k, window) != (KERNEL_K, KERNEL_WINDOW)
+    if general:
+        tx, ty, smem = general_block(k, window, _cuda.smem_limit(points.device))
+        order = _order_table(window, tx, points.device)
+    plane = h * w
+    p, v, o = points.data_ptr(), valid.data_ptr(), out.data_ptr()
+    for f0 in range(0, b, MAX_FRAMES):  # frame f0 on: float32 points (3 a pixel), bool, float32
+        n = min(MAX_FRAMES, b - f0)
+        at = f0 * plane
+        if general:
+            err = lib.sd_knn_grid_general(p + 12 * at, v + at, o + 4 * at, order.data_ptr(),
+                                          order.numel(), n, h, w, k, wh, ww, tx, ty, smem, stream)
+            _cuda.check(err, "knn_mean_distances_grid (general)")
+            knn_mean_distances_grid.general_launches += 1
+        else:
+            err = lib.sd_knn_grid(p + 12 * at, v + at, o + 4 * at, n, h, w, k, wh, ww, stream)
+            _cuda.check(err, "knn_mean_distances_grid")
+        knn_mean_distances_grid.launches += 1
     return out
 
 
@@ -175,9 +189,9 @@ def knn_mean_distances_grid(
 ) -> torch.Tensor:
     """points (B, H, W, 3) float32, valid (B, H, W) bool -> (B, H, W)
     float32, through the op ``sd_torch::knn_grid``: CPU tensors take the
-    plain version; CUDA tensors launch a kernel (one launch for the batch,
-    counted in ``launches``; the general kernel's also in
-    ``general_launches``) or raise."""
+    plain version; CUDA tensors launch a kernel (one launch per
+    ``MAX_FRAMES`` frames, counted in ``launches``; the general kernel's
+    also in ``general_launches``) at any B, or raise."""
     return _knn_grid_op(points, valid, k, list(window))
 
 

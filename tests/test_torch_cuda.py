@@ -65,9 +65,10 @@ def test_knn_grid_kernel_bit_equal_with_valid_inf_points(cuda):
 
 
 def _k1_general_grids(cuda, h=64, w=160):
-    """(3, h, w) grids: an analytic scene's road with 15% punched out, the
-    same scene with zero-disparity patches (valid +-inf and nan points) and
-    random points 30% valid."""
+    """(4, h, w) grids: an analytic scene's road with 15% punched out, the
+    same scene with zero-disparity patches (valid +-inf and nan points),
+    random points 30% valid, and the scene all valid (full windows, for
+    k = wh * ww)."""
     cfg = config.munich_pipeline_config(input_height=h, input_width=w)
     disp = torch.from_numpy(scene_pool(1, h, w, seed=2)[2] * np.float32(2048.0 * w / 512.0))
     labels = scene_pool(1, h, w, seed=2)[1]
@@ -81,17 +82,21 @@ def _k1_general_grids(cuda, h=64, w=160):
     inf_valid[::3, 1::4] = False
     rnd = torch.from_numpy((rng.normal(size=(h, w, 3)) * [2.0, 0.3, 5.0]).astype(np.float32))
     rnd_valid = torch.from_numpy(rng.random((h, w)) < 0.3)
-    return (torch.stack([pts, inf_pts, rnd]).contiguous().to(cuda),
-            torch.stack([road, inf_valid, rnd_valid]).contiguous().to(cuda))
+    full = torch.ones((h, w), dtype=torch.bool)
+    return (torch.stack([pts, inf_pts, rnd, pts]).contiguous().to(cuda),
+            torch.stack([road, inf_valid, rnd_valid, full]).contiguous().to(cuda))
 
 
 @pytest.mark.parametrize("k, window", [(20, (5, 21)), (10, (7, 21)), (10, (5, 31)),
                                        (10, (7, 31)), (6, (4, 20)), (40, (9, 33)), (64, (9, 9)),
-                                       (1, (1, 1)), (3, (2, 2)), (33, (5, 11))])
+                                       (1, (1, 1)), (3, (2, 2)), (33, (5, 11)), (32, (7, 31)),
+                                       (33, (7, 31)), (64, (7, 31)), (217, (7, 31)), (81, (9, 9)),
+                                       (8, (4, 2))])
 def test_knn_grid_general_kernel_bit_equal(cuda, k, window):
     """Every (k, window) but the road chain's takes the general kernel
-    (registers up to k = 32, shared memory above; odd and even windows);
-    bit-equal to the plain version, nan and +inf patterns included."""
+    (registers up to k = 32, shared memory above, k = wh * ww too; odd and
+    even windows); bit-equal to the plain version, nan and +inf patterns
+    included."""
     pts, valid = _k1_general_grids(cuda)
     fn = knn_grid.knn_mean_distances_grid
     launches, general = fn.launches, fn.general_launches
@@ -101,6 +106,24 @@ def test_knn_grid_general_kernel_bit_equal(cuda, k, window):
     assert torch.equal(got.isnan(), want.isnan())
     assert torch.equal(got.nan_to_num(), want.nan_to_num())
     assert bool(torch.isfinite(want[valid]).any())
+
+
+@pytest.mark.parametrize("k, window", [(10, (5, 21)), (20, (7, 31)), (40, (5, 11))])
+def test_knn_grid_past_65535_frames_in_chunks(cuda, k, window):
+    """65,537 small frames go in two launches (frames past 65,535 in the
+    second), the specialised kernel's and the general kernel's alike,
+    bit-equal to the plain version."""
+    rng = np.random.default_rng(k)
+    pts = torch.from_numpy((rng.normal(size=(65537, 8, 16, 3)) * [2.0, 0.3, 5.0])
+                           .astype(np.float32)).to(cuda)
+    valid = torch.from_numpy(rng.random((65537, 8, 16)) < 0.9).to(cuda)
+    fn = knn_grid.knn_mean_distances_grid
+    launches, general = fn.launches, fn.general_launches
+    got = fn(pts, valid, k, window)
+    specialised = (k, window) == (knn_grid.KERNEL_K, knn_grid.KERNEL_WINDOW)
+    assert (fn.launches, fn.general_launches) == (launches + 2, general + 2 * (not specialised))
+    want = knn_grid.knn_mean_distances_grid_plain(pts, valid, k, window)
+    assert torch.equal(got, want) and bool(torch.isfinite(want[-1][valid[-1]]).any())
 
 
 def test_knn_grid_road_chain_setting_keeps_the_specialised_kernel(cuda):
@@ -395,11 +418,11 @@ def test_exact_knn_kernel_matches_plain_bit_equal(cuda, k):
     assert torch.equal(got.cpu(), exact_knn.knn_mean_distances_exact_plain(x.cpu(), v.cpu(), k))
 
 
-@pytest.mark.parametrize("k", [33, 50, 100])
+@pytest.mark.parametrize("k", [33, 50, 64, 100, 128, 256])
 def test_exact_knn_large_k_bit_equal(cuda, k):
-    """k > 32 takes the large-k kernel: bit-equal to the plain version with
-    its box skip and without, on the edge frames (fewer valid points than
-    k among them) and the exact mode's road clouds."""
+    """k > 32 takes the large-k kernels: bit-equal to the plain version with
+    the box skip and deferral and without, on the edge frames (fewer valid
+    points than k among them) and the exact mode's road clouds."""
     fn = exact_knn.knn_mean_distances_exact
     for xyz, valid in ((torch.from_numpy(a).to(cuda) for a in _exact_knn_frames()),
                        k4.road_clouds(4, 256, 512, 16384, cuda)):
@@ -468,6 +491,44 @@ def test_exact_knn_boxes_and_counts_match_the_emulated_schedule(cuda):
     assert torch.equal(out.cpu(), emulated)
 
 
+@pytest.mark.parametrize("k", [40, 50])
+def test_exact_knn_large_k_counts_match_the_emulated_schedule(cuda, k):
+    """The large-k kernels' counts (pairs of the near and the far walk,
+    subtiles loaded and tested, deferred queries) equal what
+    ``torch_k4_schedule`` counts, and their result the emulation's; with
+    the buffers in shared memory and, under small shared-memory limits,
+    fewer warps a block and the buffers in the scratch."""
+    xyz, valid = k4.road_clouds(device=cuda)
+    xyz[1, ::97] = torch.tensor([30.0, 5.0, -60.0], device=cuda)  # outliers to defer
+    b, c = valid.shape
+    emulated, counts = k4.emulate(xyz.cpu(), valid.cpu(), k)
+    assert counts["deferred"] > 0 and counts["pairs_far"] > 0
+    # 4 warps a block; at 12 KB two; at 8 KB the buffers in the scratch
+    for limit in (exact_knn.SMEM_OPTIN_BYTES, 12 * 1024, 8 * 1024):
+        assert exact_knn.large_k_layout(k, limit)[1] == (limit > 8 * 1024)
+        scratch = torch.empty(exact_knn.scratch_words(b, c, k, limit), device=cuda)
+        out = torch.empty((b, c), device=cuda)
+        exact_knn._launch(xyz, valid, k, True, scratch, out, limit)
+        assert exact_knn.scratch_stats(scratch) == counts
+        assert torch.equal(out.cpu(), emulated)
+
+
+@pytest.mark.parametrize("k", [10, 50])
+def test_exact_knn_past_65535_frames_in_chunks(cuda, k):
+    """65,537 small clouds (40 rows, some with fewer valid points than k) go
+    in two launches, bit-equal to the plain version."""
+    rng = np.random.default_rng(k)
+    xyz = torch.from_numpy((rng.normal(size=(65537, 40, 3)) * [2.0, 0.3, 5.0])
+                           .astype(np.float32)).to(cuda)
+    valid = torch.from_numpy(rng.random((65537, 40)) < 0.8).to(cuda)
+    fn = exact_knn.knn_mean_distances_exact
+    launches, large = fn.launches, fn.large_k_launches
+    got = fn(xyz, valid, k)
+    assert (fn.launches, fn.large_k_launches) == (launches + 2, large + 2 * (k > 32))
+    assert torch.equal(got, exact_knn.knn_mean_distances_exact_plain(xyz, valid, k))
+    assert bool(torch.isfinite(got[-1][valid[-1]]).all())
+
+
 def test_exact_knn_makes_no_host_sync(cuda):
     xyz, valid = k4.road_clouds(device=cuda)
     exact_knn.knn_mean_distances_exact(xyz, valid, 10)  # builds and loads the library
@@ -514,7 +575,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     ok = torch.ones((1, 100), dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError):
         exact_knn.knn_mean_distances_exact(x, ok, 0)
-    # past the register walks' k = 32 the large-k kernel computes
+    # past the register walks' k = 32 the large-k walks compute
     assert torch.equal(exact_knn.knn_mean_distances_exact(x, ok, 33),
                        exact_knn.knn_mean_distances_exact_plain(x, ok, 33))
     with pytest.raises(ValueError):

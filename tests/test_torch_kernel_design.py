@@ -17,6 +17,11 @@ CPU and held against the plain versions (and through them the JAX package):
 * K1 (``csrc/knn_grid.cu``) visits the window nearest first with an early
   reject, valid flags folded into the candidates (+inf if invalid), and an
   exact path for blocks with non-finite valid points.
+* Past k = 32 (the general K1, K4's large-k walks) a thread keeps its 32
+  smallest in registers and the rest unsorted in shared memory with their
+  largest tracked (``csrc/kselect.cuh``); K4's large-k far walk merges a
+  warp's pending candidates into its k smallest by rank after a bitonic
+  sort: both emulated value by value against sorting and ``topk``.
 
 The kernels themselves run on the card in test_torch_cuda.py."""
 
@@ -446,8 +451,8 @@ def _k1_block(k, window):
 
 def _k1_emulate(points, valid, k=10, window=(5, 21)):
     """K1's schedule: each pixel takes the offsets of ``visit_order`` (the
-    table the wrapper builds; the specialised kernel's compile-time order
-    at (5, 21)) that fall in its window (its parity is its row in the
+    specialised kernel's compile-time order at (5, 21); the general
+    kernel's table, ``general_order``, elsewhere) that fall in its window (its parity is its row in the
     thread), each distance rejected by one compare against buf[k-1] or
     inserted. Blocks (``_k1_block``) whose halo holds no valid point with a
     coordinate that is not finite add w (0 or +inf) to each distance; the
@@ -470,7 +475,10 @@ def _k1_emulate(points, valid, k=10, window=(5, 21)):
     cx, cy, cz = pts.unbind(-1)
     buf = torch.full((b, h, w, k), float("inf"))
     n_nan = torch.zeros((b, h, w), dtype=torch.long)
-    for dy, dx in knn_grid.visit_order(window):
+    order = knn_grid.visit_order(window)
+    if (k, tuple(window)) != (knn_grid.KERNEL_K, knn_grid.KERNEL_WINDOW):
+        order = [o for part in knn_grid.general_order(window) for o in part]
+    for dy, dx in order:
         for r in (0, 1):
             ry = dy - r
             if not -ph <= ry <= wh - 1 - ph:
@@ -561,8 +569,12 @@ def test_k1_order_is_the_union_of_both_windows_nearest_first(window):
     for r in (0, 1):  # each pixel's own wh x ww window, once each
         mine = [(dy - r, dx) for dy, dx in order if -ph <= dy - r <= wh - 1 - ph]
         assert sorted(mine) == [(y, x) for y in range(-ph, wh - ph) for x in range(-pw, ww - pw)]
-    table = knn_grid._order_table(tuple(window), torch.device("cpu")).tolist()
-    assert [(e >> 16, (e & 0xFFFF) - ((e & 0x8000) << 1)) for e in table] == order
+    tx = knn_grid.general_block(1, window)[0]
+    sw = tx + ww - 1  # the halo tile's row: an entry is the offset dy * sw + dx
+    table = knn_grid._order_table(tuple(window), tx, torch.device("cpu")).tolist()
+    decoded = [((e + pw) // sw, (e + pw) % sw - pw) for e in table]
+    assert decoded == [o for part in knn_grid.general_order(window) for o in part]
+    assert sorted(decoded) == sorted(order)
 
 
 def test_k1_general_block_fits_the_shared_memory_or_raises():
@@ -570,11 +582,224 @@ def test_k1_general_block_fits_the_shared_memory_or_raises():
     window no block's halo fits raises, naming the limit."""
     assert knn_grid.general_block(10, (7, 31)) == (32, 8, (16 + 6) * (32 + 30) * 16)
     tx, ty, smem = knn_grid.general_block(100, (9, 33))
-    assert smem == (2 * ty + 8) * (tx + 32) * 16 + 2 * tx * ty * 100 * 4 <= 227 * 1024
+    assert smem == (2 * ty + 8) * (tx + 32) * 16 + 2 * tx * ty * (100 - 32) * 4 <= 227 * 1024
     assert (tx, ty) == (32, 8)
     assert knn_grid.general_block(10, (61, 211))[:2] == (16, 1)  # (32, 1): 240064 bytes
     with pytest.raises(ValueError, match="232448 bytes"):
         knn_grid.general_block(10, (301, 301))
+
+
+@pytest.mark.parametrize("window", [(7, 31), (4, 20), (1, 1), (2, 2), (9, 33)])
+def test_k1_general_order_splits_the_order_by_rows(window):
+    """The general kernel's table: the offsets both pixels take, then the
+    first pixel's top row, then the second's bottom row, each part nearest
+    first, together the union ``visit_order`` holds."""
+    wh, ww = window
+    ph = wh // 2
+    both, top, bottom = knn_grid.general_order(window)
+    assert [len(both), len(top), len(bottom)] == [(wh - 1) * ww, ww, ww]
+    assert all(-ph < dy < wh - ph for dy, _ in both)
+    assert {dy for dy, _ in top} == {-ph} and {dy for dy, _ in bottom} == {wh - ph}
+    for part in (both, top, bottom):
+        keys = [(2 * dy - 1) ** 2 + 4 * dx * dx for dy, dx in part]
+        assert keys == sorted(keys)
+    assert sorted(both + top + bottom) == sorted(knn_grid.visit_order(window))
+
+
+# --- the k > 32 buffers: csrc/kselect.cuh and the large-k far walk's merge ---
+
+
+def _insertion_sort(values):
+    out = list(values)
+    for i in range(1, len(out)):
+        v, j = out[i], i
+        while j > 0 and out[j - 1] > v:
+            out[j] = out[j - 1]
+            j -= 1
+        out[j] = v
+    return out
+
+
+def _kselect(values, k):
+    """csrc/kselect.cuh on one thread's candidates in the kernel's order: a
+    value below thr (never nan or +inf) enters the 32 registers' min/max
+    network; what leaves it (+inf while they are not full) takes the
+    buffer's next slot, then the slot of its largest; thr is the buffer's
+    largest once it holds k - 32. Returns the values held, ascending: the
+    registers' finite ones, then the buffer sorted."""
+    reg, buf, thr, at = [float("inf")] * 32, [], float("inf"), 0
+    for v in values:
+        if not v < thr:
+            continue
+        for j in range(32):
+            reg[j], v = min(reg[j], v), max(reg[j], v)
+        if not v < float("inf"):
+            continue
+        if len(buf) < k - 32:
+            buf.append(v)
+        else:
+            buf[at] = v
+        if len(buf) == k - 32:
+            thr = max(buf)
+            at = buf.index(thr)
+    assert all(r <= x for r in reg for x in buf)  # every buffer value above the registers'
+    return [r for r in reg if r < float("inf")] + _insertion_sort(buf)
+
+
+def _sum_roots(values):
+    """float32 roots (via float64, as __fsqrt_rn) summed in the given order."""
+    acc = torch.zeros((), dtype=torch.float32)
+    for v in torch.sqrt(torch.tensor(values, dtype=torch.float64)).float():
+        acc = acc + v
+    return acc
+
+
+def _drawn_row(seed, n):
+    """(n,) float32 distances: ties from a small pool, +inf and nan mixed in."""
+    rng = np.random.default_rng(seed)
+    pool = np.array([0.0, 0.25, 0.25, 1.0, 3.5, 3.5, 7.0], np.float32)
+    vals = np.where(rng.random(n) < 0.4, rng.choice(pool, n),
+                    rng.random(n).astype(np.float32) * 8).astype(np.float32)
+    vals[rng.random(n) < rng.choice([0.0, 0.1, 0.6])] = np.inf
+    vals[rng.random(n) < rng.choice([0.0, 0.05, 0.5])] = np.nan
+    return vals
+
+
+@settings(max_examples=60, deadline=None, database=None)
+@given(seed=st.integers(0, 2**32 - 1), n=st.integers(33, 300), k=st.integers(33, 300))
+def test_kselect_buffer_keeps_the_k_smallest_like_topk(seed, n, k):
+    """The k > 32 buffers on drawn rows (ties, +inf, nan, fewer than k
+    finite values): they hold the k smallest finite values, ascending, and
+    K1's mean from it (+inf short of k values, nan past wh * ww - k nan
+    distances) is bit-equal to the plain version's topk sum."""
+    k = min(k, n)
+    vals = _drawn_row(seed, n)
+    held = _kselect(vals.tolist(), k)
+    fin = np.sort(vals[np.isfinite(vals)])
+    assert np.array_equal(np.array(held, np.float32), fin[:k])
+    t = torch.from_numpy(vals)
+    smallest = torch.topk(t, k, largest=False, sorted=True).values
+    want = _sum_roots(smallest.tolist()) / torch.tensor(float(k))
+    n_nan = int(np.isnan(vals).sum())
+    got = (torch.tensor(float("nan")) if n_nan > n - k else
+           torch.tensor(float("inf")) if len(held) < k else
+           _sum_roots(held) / torch.tensor(float(k)))
+    assert torch.equal(got.isnan(), want.isnan()) and torch.equal(got.nan_to_num(),
+                                                                  want.nan_to_num())
+
+
+def _bitonic(values):
+    """csrc/exact_knn.cu::lk_merge's network on P padded with +inf to a power
+    of two, compare-exchange by compare-exchange."""
+    n = 1
+    while n < len(values):
+        n <<= 1
+    p = list(values) + [float("inf")] * (n - len(values))
+    size = 2
+    while size <= n:
+        stride = size >> 1
+        while stride > 0:
+            for t in range(n // 2):
+                lo = (t // stride) * 2 * stride + t % stride
+                hi = lo + stride
+                if (p[lo] > p[hi]) == ((lo & size) == 0):
+                    p[lo], p[hi] = p[hi], p[lo]
+            stride >>= 1
+        size <<= 1
+    return p[:len(values)]
+
+
+def _lk_merge(a, pending, k):
+    """lk_merge: each value to its rank in the merged order (A's first on a
+    tie), the ranks below k kept; every slot written once."""
+    p = _bitonic(pending)
+    out = [None] * k
+    for i, v in enumerate(a):
+        r = i + sum(x < v for x in p)
+        if r < k:
+            assert out[r] is None
+            out[r] = v
+    for j, v in enumerate(p):
+        r = j + sum(x <= v for x in a)
+        if r < k:
+            assert out[r] is None
+            out[r] = v
+    return out
+
+
+@settings(max_examples=40, deadline=None, database=None)
+@given(seed=st.integers(0, 2**32 - 1), k=st.integers(33, 120), n_a=st.integers(0, 120),
+       n_p=st.integers(1, 512))
+def test_lk_merge_by_rank_is_the_sorted_union(seed, k, n_a, n_p):
+    """The large-k far walk's merge: A the warp's k smallest so far (sorted,
+    +inf past what it holds), P the pending candidates (finite, ties with A
+    and among themselves): the result is the k smallest of both, ascending."""
+    rng = np.random.default_rng(seed)
+    pool = rng.random(16).astype(np.float32)
+    draw = lambda m: np.where(rng.random(m) < 0.5, rng.choice(pool, m),
+                              rng.random(m)).astype(np.float32)
+    a = np.sort(draw(min(n_a, k))).tolist() + [float("inf")] * (k - min(n_a, k))
+    p = draw(n_p).tolist()
+    got = _lk_merge(a, p, k)
+    assert got == np.sort(np.array(a + p, np.float32))[:k].tolist()
+    assert _bitonic(p) == sorted(p)
+
+
+_K4_LARGE = [("road", 50, True), ("road", 33, False), ("outliers", 50, True),
+             ("outliers", 40, True), ("edge", 64, True), ("edge", 100, False), ("blob", 100, True)]
+
+
+@pytest.mark.parametrize("case,k,skip", _K4_LARGE)
+def test_k4_large_k_schedule_is_bit_equal_to_the_plain_version(case, k, skip):
+    """k > 32 keeps the k <= 32 schedule (near walk, tests, deferral) and
+    searches a deferred query again from its near walk's k-th distance: the
+    emulated schedule equals the plain version; its counts at k = 50 against
+    k = 10's show the search's growth."""
+    xyz, valid = _K4_CASES[case]()
+    got, stats = k4.emulate(xyz, valid, k, skip)
+    assert torch.equal(got, exact_knn.knn_mean_distances_exact_plain(xyz, valid, k))
+    if not skip:
+        assert stats["deferred"] == 0 and stats["subtile_tests"] == 0 and stats["pairs_far"] == 0
+        return
+    if case == "outliers":  # outliers leave their warps, and the far walk finds their k
+        assert stats["deferred"] > 0 and stats["pairs_far"] > 0
+    if case == "road":
+        small = k4.emulate(xyz, valid, 10, skip)[1]
+        n = valid.sum(-1).double()
+        assert small["pairs_near"] <= stats["pairs_near"] < 0.5 * float((n * n).sum())
+
+
+def test_k4_large_k_scratch_and_layout():
+    """scratch_words for k > 32 holds the deferred rows and k-th distances
+    (no per-query buffer), and the buffers (the k - 32 values past the
+    registers) only where ``large_k_layout`` puts them in the scratch; the
+    layout takes the most warps that fit."""
+    b, c = 3, 5000
+    s, cp, g = -(-c // 32), -(-c // 32) * 32, -(-c // 1024)
+    base = b * (cp * 4 + s * 8 + g * 8) + 16
+    assert exact_knn.scratch_words(b, c, 10) == base + b * (cp * 10 + cp)
+    assert exact_knn.large_k_layout(50) == (4, True)  # 4 x (1536 + 64 x 18 x 4) bytes
+    assert exact_knn.large_k_layout(253) == (4, True) and exact_knn.large_k_layout(254) == (2, True)
+    assert exact_knn.large_k_layout(934) == (1, True)
+    assert exact_knn.large_k_layout(935) == (4, False)
+    assert exact_knn.scratch_words(b, c, 50) == base + 2 * b * cp
+    assert exact_knn.scratch_words(b, c, 50) < exact_knn.scratch_words(b, c, 32)
+    near = b * -(-cp // 256) * 256 * (1000 - 32)
+    assert exact_knn.scratch_words(b, c, 1000) == base + 2 * b * cp + near + 264 * 4 * 2512
+    # small limits take fewer warps, then move the buffers into the scratch
+    assert exact_knn.large_k_layout(50, 12 * 1024) == (2, True)
+    assert exact_knn.large_k_layout(50, 8 * 1024) == (4, False)
+
+
+def test_k4_chunks_stay_below_the_launch_limits():
+    """max_frames: 65535 frames a launch, fewer where the padded rows would
+    reach 2^31 (the deferred list's 32-bit row ids); a frame too large for
+    one launch raises, naming the limit."""
+    assert exact_knn.max_frames(4) == 65535 and exact_knn.max_frames(32768) == 65535
+    assert exact_knn.max_frames(131072) == 16383
+    assert exact_knn.max_frames(131072) * 131072 < 2 ** 31
+    with pytest.raises(ValueError, match="2147483647 rows"):
+        exact_knn.max_frames(2 ** 31)
 
 
 # --- the measured variants and K4's bound ------------------------------------

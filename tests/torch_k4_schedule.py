@@ -3,7 +3,10 @@ plain torch: the near-first walk of each warp of 64 queries over the
 preparation kernel's boxes, its four skip tests with the kernel's margin
 (the group test made for 32 groups at a time, after the own group),
 the deferral of queries whose k-th distance stays far above their warp's,
-and the deferred queries' walk with the 32 lanes over the candidates.
+and the deferred queries' walk with the 32 lanes over the candidates (for
+k > 32: the large-k kernels' far walk, which searches every group again
+from the near walk's k-th distance as an inclusive bound and lowers it to
+the warp's merged k-th after each group).
 
 ``emulate`` repeats the kernel's decisions in the kernel's float32 steps
 (each skip test rounds as the kernel's ``__fmul_rn`` / ``__fadd_rn``), so it
@@ -248,8 +251,13 @@ def emulate(xyz: torch.Tensor, valid: torch.Tensor, k: int, skip: bool = True):
     stats["deferred"] = di.shape[0]
     if di.shape[0]:
         dw, dl = di.unbind(-1)
-        res, stats["pairs_far"] = _far_walk(
-            q[dw, dl], qsq[dw, dl], a[dw, dl], b1[dw, dl], wf[dw], g0[dw], sub, grp, cand, cw, s)
+        if k > ek.REGISTER_MAX_K:
+            res, stats["pairs_far"] = _far_walk_large(
+                q[dw, dl], qsq[dw, dl], a[dw, dl], b1[dw, dl, -1], wf[dw], sub, grp, cand, cw, s, k)
+        else:
+            res, stats["pairs_far"] = _far_walk(
+                q[dw, dl], qsq[dw, dl], a[dw, dl], b1[dw, dl], wf[dw], g0[dw], sub, grp, cand, cw,
+                s)
         out[wf[dw], qrows[dw, dl]] = res
     return out, stats
 
@@ -302,3 +310,50 @@ def _far_walk(q, qsq, a, b1, f, g0, sub, grp, cand, cw, s):
             t_b[gsel] = torch.minimum(t_b[gsel], lb[gsel, :, -1].amin(-1))
     best = torch.sort(lb.reshape(d, -1), -1).values[:, :k]
     return _finish(best), pairs
+
+
+def _far_walk_large(q, qsq, a, thr, f, sub, grp, cand, cw, s, k):
+    """The large-k far walk: one warp a deferred query over every group
+    (its own included), groups tested 32 at a time against the bound at the
+    round's start, a needed group's subtiles against the current bound, each
+    needed subtile's candidates with d2 <= bound kept; the bound starts at
+    the near walk's k-th distance (at most the largest float) and after each
+    needed group drops to the k-th of all kept so far. The mean of the
+    finite k smallest kept."""
+    d = q.shape[0]
+    g_n = grp.shape[1]
+    buf = torch.full((d, k), INF)
+    lim = torch.minimum(thr, torch.tensor(torch.finfo(torch.float32).max))
+    pairs = 0
+    lanes = torch.arange(ek.SUBTILE)
+    qlo = q[:, None]
+    for r0 in range(0, g_n, ek.SUBTILE):
+        gi = r0 + lanes
+        gb = _boxes(grp, f, gi.expand(d, -1), g_n)
+        tg = (lim * _MT + a)[:, None] + gb[..., 3] * _MS
+        need_g = ~(gb[..., 0] > gb[..., 4]) & ~(gap2(qlo, qlo, gb[..., :3], gb[..., 4:7]) > tg)
+        for j in range(min(ek.SUBTILE, g_n - r0)):
+            gsel = need_g[:, j].nonzero()[:, 0]
+            if gsel.numel() == 0:
+                continue
+            base = (r0 + j) * ek.GROUP
+            sb = _boxes(sub, f[gsel], (base + lanes).expand(gsel.numel(), -1), s)
+            ts = (lim[gsel] * _MT + a[gsel])[:, None] + sb[..., 3] * _MS
+            need_s = ~(sb[..., 0] > sb[..., 4]) & ~(gap2(qlo[gsel], qlo[gsel], sb[..., :3],
+                                                         sb[..., 4:7]) > ts)
+            for m in range(ek.GROUP):
+                ssel = gsel[need_s[:, m]]
+                if ssel.numel() == 0:
+                    continue
+                pairs += ssel.numel() * ek.SUBTILE
+                idx = (base + m) * ek.SUBTILE + lanes
+                c4 = cand[f[ssel][:, None], idx]
+                w4 = cw[f[ssel][:, None], idx]
+                qq = q[ssel]
+                cross = ((qq[:, 0:1] * c4[..., 0] + qq[:, 1:2] * c4[..., 1])
+                         + qq[:, 2:3] * c4[..., 2])
+                d2 = (qsq[ssel][:, None] + w4) - 2.0 * cross
+                new = torch.where(d2 <= lim[ssel, None], torch.clamp_min(d2, 0.0), INF)
+                buf[ssel] = _merge(buf[ssel], new)
+            lim[gsel] = torch.minimum(lim[gsel], buf[gsel, -1])
+    return _finish(buf), pairs

@@ -6,7 +6,8 @@ checkout, so that ``tools/time_knn.py`` times every one in the same call.
     python3 tools/knn_variants.py [--out build/variants]
     (cd build/variants/<name> && python3 tools/time_knn.py --json <name>.json)
 
-Variants (each changes one kernel source; every other file is copied):
+Variants (each changes one kernel source; every other file is copied; the
+K4 variants change its walks for k <= 32):
 
 - ``k4_near_only``: no query drops out of its warp's tests; the near walk
   alone, no far-walk kernel.

@@ -47,7 +47,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 _PORT_KERNELS = ("knn_grid_kernel", "knn_grid_general_kernel", "mad_cluster_kernel",
                  "radius_prep_kernel", "radius_kernel", "exact_knn_prep_kernel",
-                 "exact_knn_kernel", "exact_knn_far_kernel", "exact_knn_large_kernel")
+                 "exact_knn_kernel", "exact_knn_far_kernel", "exact_knn_lk_kernel",
+                 "exact_knn_lk_far_kernel")
 _CONV_MARKS = ("conv", "cudnn", "xmma", "implicit", "fft", "dse::", "pointwise_mult_and_sum")
 
 

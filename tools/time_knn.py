@@ -9,11 +9,18 @@ one exact-mode tail (``_batch_geometry``) on the 8 analytic scenes at
 256x512 (K1 at (8, 256, 512), K4 at (8, 16384)) and replays them; K1 also
 on ``chip_smoke.py``'s input (4 scene frames and 4 frames of random points,
 30% valid) and on each half apart; K4 also on ``chip_smoke.py``'s
-(1, 131072) scene cloud with 1% outliers. For each: wrapper ms (CUDA
-events, median of ``--iters``) and kernel ms (the kernels' device time in a
-``torch.profiler`` pass, per call), each call checked bit-equal to its
-plain version, K4's counts of scanned pairs where its kernels report
-them, and how many warps hold work (a valid pixel or row).
+(1, 131072) scene cloud with 1% outliers. Then the other parameters
+(``chip_smoke.py`` phase 13's cases, written out here so that an older
+checkout times the same): the general K1 kernel at each (k, window) of
+``K1_GENERAL`` on ``chip_smoke.py``'s input and at the native tail's
+launch under stat_window (7, 31), (2, 1024, 2048), and K4 at each k of
+``K4_K`` (k = 32 on the register walks, the rest on the large-k kernels)
+on the exact tail's launch and the scene cloud (``--no_params`` leaves
+them out). For each: wrapper ms (CUDA events, median of ``--iters``) and
+kernel ms (the kernels' device time in a ``torch.profiler`` pass, per
+call), each call checked bit-equal to its plain version, K4's counts of
+scanned pairs where its kernels report them, and how many warps hold work
+(a valid pixel or row).
 
 It goes through the wrappers' public names, ``chip_smoke.py``'s inputs and
 ``utils/probes.py``, so it times whichever kernels the checkout holds: to
@@ -25,6 +32,7 @@ call.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -35,13 +43,18 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-KERNEL_MARKS = {"K1": ("knn_grid_kernel",), "K4": ("exact_knn",)}
+K1_GENERAL = ((20, (5, 21)), (10, (7, 21)), (10, (5, 31)), (10, (7, 31)), (6, (4, 20)),
+              (40, (9, 33)), (32, (7, 31)), (33, (7, 31)), (20, (7, 31)))
+K4_K = (32, 33, 50, 64, 100)
+KERNEL_MARKS = {"K1": ("knn_grid_kernel",), "K1 general": ("knn_grid",), "K4": ("exact_knn",)}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--json", help="write the result to this file")
+    ap.add_argument("--no_params", action="store_true",
+                    help="leave out the general K1 and the k != 10 K4 cases")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: needs a CUDA device", flush=True)
@@ -80,12 +93,12 @@ def main() -> int:
         return {f"{rows} row(s)": int(v.reshape(b, -1, rows, v.shape[-1] // 32, 32)
                                          .any(4).any(2).sum()) for rows in (1, 2)}
 
-    def k4_counts(xyz, valid):
+    def k4_counts(xyz, valid, k=10):
         if not hasattr(exact_knn, "scratch_stats"):  # kernels that keep no counts
             return {}
         b, c = valid.shape
-        scratch = torch.empty(exact_knn.scratch_words(b, c, 10), device=dev)
-        exact_knn._launch(xyz, valid, 10, True, scratch, torch.empty((b, c), device=dev))
+        scratch = torch.empty(exact_knn.scratch_words(b, c, k), device=dev)
+        exact_knn._launch(xyz, valid, k, True, scratch, torch.empty((b, c), device=dev))
         counts = exact_knn.scratch_stats(scratch)
         n = valid.sum(-1).double()
         counts.update(pairs_all=float((n * n).sum()),
@@ -144,6 +157,45 @@ def main() -> int:
                 lambda: exact_knn.knn_mean_distances_exact_plain(x, v, 10), iters))
             k4[name]["counts"] = k4_counts(x, v)
         result["K4"] = k4
+
+        if not args.no_params:
+            p = torch.cat([pts_s, pts_r]).contiguous()
+            v = torch.cat([ok_s, ok_r]).contiguous()
+            k1g = {}
+            for k, window in K1_GENERAL:
+                name = f"k={k} window={window}"
+                k1g[name] = replay(
+                    f"K1 general {name} (8, 256, 512)", "K1 general",
+                    lambda: knn_grid.knn_mean_distances_grid(p, v, k, window),
+                    lambda: knn_grid.knn_mean_distances_grid_plain(p, v, k, window), args.iters)
+            # the native tail's launch under stat_window (7, 31), as phase 13 (a) records it
+            nat = chip_smoke.scene_batch(2, 1024, 2048, seed=7, dev=dev)
+            base = chip_smoke.native_config()
+            ncfg = dataclasses.replace(base, road=dataclasses.replace(base.road,
+                                                                      stat_window=(7, 31)))
+            ncam, _ = pipeline._scaled_camera(ncfg, ncfg.camera.focal)
+            tiny = pipeline.SemanticDepthPipeline(
+                ncfg, FCN8s(width_mult=0.0625, fc_channels=32), Monodepth(width_mult=0.0625),
+                device=dev)
+            with recording_kernel_calls() as calls:
+                tiny._batch_geometry(*[nat[k] for k in ("small", "road", "fence", "disp")], ncam)
+            (npts, nvalid, nk, nwin), = calls["knn_grid"]
+            k1g[f"native {tuple(npts.shape[:3])} k={nk} window={tuple(nwin)}"] = replay(
+                f"K1 general native {tuple(npts.shape[:3])} k={nk} {tuple(nwin)}", "K1 general",
+                lambda: knn_grid.knn_mean_distances_grid(npts, nvalid, nk, nwin),
+                lambda: knn_grid.knn_mean_distances_grid_plain(npts, nvalid, nk, nwin), args.iters)
+            del nat, tiny, calls
+            result["K1 general"] = k1g
+            k4l = {}
+            for k in K4_K:
+                for name, (x, v, iters) in (("exact tail (8, 16384)", (xyz, valid, args.iters)),
+                                            ("scene cloud (1, 131072)", (big_xyz, big_valid, 5))):
+                    row = replay(f"K4 k={k} {name}", "K4",
+                                 lambda: exact_knn.knn_mean_distances_exact(x, v, k),
+                                 lambda: exact_knn.knn_mean_distances_exact_plain(x, v, k), iters)
+                    row["counts"] = k4_counts(x, v, k)
+                    k4l[f"k={k} {name}"] = row
+            result["K4 large k"] = k4l
     if args.json:
         with open(args.json, "w") as f:
             json.dump(result, f, indent=1)
