@@ -168,8 +168,22 @@ either is missing or any check fails. Phases:
    and (40, (5, 11))) and K4 (k = 10 and 50) on 65,537 small frames in two
    launches each, bit-equal; the padded launches' wrapper, plain and bound
    ms, and phase 5's bfloat16 frames/s beside the rate recorded before
-   the padding (358.13, PERF.md). The seconds each phase took close the
-   run (``phase walls``).
+   the padding (358.13, PERF.md);
+15. the published TF1 weight sets with no TensorFlow: (a) the committed
+   fixtures (``tests/fixtures/tf1``, TensorFlow-written tiny FCN-8s,
+   encoder-only VGG16 and monodepth-vgg with Adam slots) converted
+   bit-equal to the JAX converters' committed .msgpack, loaded on the card
+   by the CLI loaders (the VGG16 by ``graft_partial``) and served by
+   ``process_batch`` (K1 x1, K2 x4, K3 x1); (b) full-width FCN-8s and
+   monodepth-vgg bundles written from seeded parameters under the
+   reference's names with Adam slots and ``global_step``
+   (``tools/tf_bundle_writer_torch.py``), loaded through
+   ``load_fcn_params`` / ``load_mono_params`` (bundle bytes, read + crc +
+   convert seconds a set, the crc32c share), bfloat16 ``process_batch`` at
+   batch 8 bit-equal to the same sets from .msgpack (K1 x1, K2 x4, K3 x1,
+   frames/s), and ``cli.semantic_depth --save_data`` on the TF paths equal
+   to the .msgpack paths' run. The seconds each phase took close the run
+   (``phase walls``).
 
 The second-to-last lines are the card's name and power limit and one JSON
 object with the kernels' numbers (``frozen_launches``: phase 10's programs';
@@ -3109,6 +3123,208 @@ def phase_any_shape(dev, counters, frames, rows, e2e):
     return res
 
 
+def _tf1_load(label, load, stats_mod):
+    """One TF1 set through a CLI loader: (seconds, bytes read, read seconds,
+    crc32c seconds), the card synchronized before the clock stops."""
+    stats_mod.reset_read_stats()
+    t0 = time.perf_counter()
+    load()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    st = dict(stats_mod.READ_STATS)
+    log(f"  {label}: read + crc + convert + load {secs:.3f} s, {st['bytes'] / 1e6:.1f} MB "
+        f"read in {st['seconds']:.3f} s, crc32c {st['crc_seconds']:.3f} s "
+        f"({st['crc_seconds'] / secs:.3f} of the whole)")
+    return dict(seconds=secs, bytes_read=st["bytes"], read_s=st["seconds"],
+                crc_s=st["crc_seconds"], crc_share=st["crc_seconds"] / secs)
+
+
+def phase_tf1_weights(dev, counters, frames, smi, n_timed=7):
+    """Phase 15: the published TF1 weight sets on the card host, with no
+    TensorFlow. (a) The committed fixtures (``tests/fixtures/tf1``, written
+    by TensorFlow) converted bit-equal to the JAX converters' committed
+    .msgpack, loaded into tiny networks on the card through the CLI loaders
+    and served by ``process_batch``. (b) Full-width FCN-8s and monodepth-vgg
+    bundles written from seeded parameters under the reference's names
+    (Adam slots, ``beta1_power``, ``beta2_power`` and ``global_step``
+    beside them) by ``tools/tf_bundle_writer_torch.py``, loaded through
+    ``load_fcn_params`` / ``load_mono_params``: ``process_batch`` at batch 8
+    in bfloat16 bit-equal to the same sets loaded from .msgpack, K1 x1, K2
+    x4, K3 x1; one ``cli.semantic_depth`` frame on the TF paths equal to the
+    .msgpack paths' run (distances, disparity and segmentation PNGs; the
+    seeded networks mark no road or fence, so the distances read nan and
+    the PNGs carry the comparison). Each Adam slot holds values of its own,
+    so a reader that returned a slot for its variable fails the bit-equal
+    checks."""
+    import importlib.util
+
+    import cv2
+
+    from semantic_depth_tpu_torch import config, pipeline
+    from semantic_depth_tpu_torch.cli import common
+    from semantic_depth_tpu_torch.models import FCN8s, Monodepth
+    from semantic_depth_tpu_torch.models import tf_checkpoint
+    from semantic_depth_tpu_torch.models import weights as W
+    from semantic_depth_tpu_torch.models.from_flax import flax_from_module
+    from tools.tf_bundle_writer_torch import seeded_bundle
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    fixtures = os.path.join(repo, "tests", "fixtures", "tf1")
+    res = {"card": smi, "tensorflow_on_host": importlib.util.find_spec("tensorflow") is not None}
+    log("[phase 15] TF1 weights on the card host (no TensorFlow; tensorflow importable here: "
+        f"{res['tensorflow_on_host']})")
+
+    def same_tree(a, b):
+        fa = {(k, n): np.asarray(v) for k, leaf in a["params"].items() for n, v in leaf.items()}
+        fb = {(k, n): np.asarray(v) for k, leaf in b["params"].items() for n, v in leaf.items()}
+        return fa.keys() == fb.keys() and all(
+            fa[k].dtype == fb[k].dtype and fa[k].shape == fb[k].shape
+            and fa[k].tobytes() == fb[k].tobytes() for k in fa)
+
+    # (a) the committed fixtures
+    t0 = time.perf_counter()
+    converted = {
+        "fcn8s_tiny": W.convert_fcn_checkpoint(os.path.join(fixtures, "fcn8s_tiny", "variables")),
+        "vgg16_tiny": W.convert_vgg_checkpoint(
+            os.path.join(fixtures, "vgg16_tiny", "variables", "variables")),
+        "monodepth_tiny": W.convert_monodepth_checkpoint(os.path.join(fixtures, "monodepth_tiny")),
+    }
+    for name, tree in converted.items():
+        check(same_tree(tree, W.load_params(os.path.join(fixtures, f"{name}.msgpack"))),
+              f"fixture {name}: converted bit-equal to the JAX converter's .msgpack")
+    with torch.device(dev):
+        torch.manual_seed(0)
+        fcn = FCN8s(num_classes=3, width_mult=0.03125, fc_channels=8)
+        mono = Monodepth("vgg", width_mult=0.03125)
+        torch.manual_seed(1)
+        warm = FCN8s(num_classes=3, width_mult=0.03125, fc_channels=8)
+    common.load_fcn_params(fcn, os.path.join(fixtures, "fcn8s_tiny"))
+    common.load_mono_params(mono, os.path.join(fixtures, "monodepth_tiny"))
+    decoder_before = {k: v.clone() for k, v in warm.state_dict().items() if "score" in k}
+    loaded = W.graft_partial(warm, converted["vgg16_tiny"])
+    check(len(loaded) == 15 and all(torch.equal(warm.state_dict()[k], v)
+                                    for k, v in decoder_before.items()),
+          f"encoder-only VGG16 grafted on the card: {len(loaded)} layers, decoder kept")
+    check(same_tree(flax_from_module(fcn), converted["fcn8s_tiny"])
+          and same_tree(flax_from_module(mono), converted["monodepth_tiny"]),
+          "fixtures loaded on the card equal their conversion")
+    pipe = pipeline.SemanticDepthPipeline(config.munich_pipeline_config(), fcn, mono, device=dev)
+    pipe.process_batch(frames)
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    out = pipe.process_batch(frames)
+    torch.cuda.synchronize()
+    counts = read_counts(counters)
+    check(counts == GRID_LAUNCHES, f"fixture networks' process_batch launches {counts}")
+    check(out.disparity.shape == (8, 256, 512) and bool(torch.isfinite(out.disparity).all()),
+          "fixture networks' disparity finite (8, 256, 512)")
+    res["fixtures"] = dict(seconds=time.perf_counter() - t0, launches=counts)
+    log(f"  (a) fixtures: bit-equal to the JAX .msgpack, served in "
+        f"{res['fixtures']['seconds']:.2f} s, launches {counts}")
+    del pipe, fcn, mono, warm, out
+
+    # (b) full width
+    work = os.path.join(repo, "chiprun_out", "smoke_tf1")
+    shutil.rmtree(work, ignore_errors=True)
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        t0 = time.perf_counter()
+        fcn_prefix = os.path.join(work, "fcn", "variables", "saved_model")
+        mono_prefix = os.path.join(work, "model_city", "model_city")
+        fcn_tree, fcn_bytes = seeded_bundle("fcn", fcn_prefix, seed=0)
+        mono_tree, mono_bytes = seeded_bundle("monodepth", mono_prefix, seed=1)
+        mdir = os.path.join(work, "msgpack")
+        os.makedirs(mdir)
+        W.save_params(fcn_tree, os.path.join(mdir, "fcn8s.msgpack"))
+        W.save_params(mono_tree, os.path.join(mdir, "monodepth.msgpack"))
+        del fcn_tree, mono_tree
+        res["write_s"] = time.perf_counter() - t0
+        res["bundle_bytes"] = dict(fcn=fcn_bytes, monodepth=mono_bytes)
+        log(f"  (b) full-width bundles written in {res['write_s']:.2f} s: FCN-8s "
+            f"{fcn_bytes / 1e6:.1f} MB, monodepth-vgg {mono_bytes / 1e6:.1f} MB "
+            "(Adam slots included)")
+        with torch.device(dev):
+            fcn = FCN8s(compute_dtype=torch.bfloat16)
+            mono = Monodepth(compute_dtype=torch.bfloat16)
+        res["fcn"] = _tf1_load("FCN-8s from TF1 (<dir>/variables)",
+                               lambda: common.load_fcn_params(fcn, os.path.join(work, "fcn")),
+                               tf_checkpoint)
+        res["monodepth"] = _tf1_load("monodepth-vgg from TF1 (prefix)",
+                                     lambda: common.load_mono_params(mono, mono_prefix),
+                                     tf_checkpoint)
+        check("tensorflow" not in sys.modules, "no TensorFlow module loaded")
+        from_tf = {k: v.clone() for m in (fcn, mono) for k, v in m.state_dict().items()}
+        pipe = pipeline.SemanticDepthPipeline(
+            config.munich_pipeline_config(compute_dtype="bfloat16"), fcn, mono, device=dev)
+        pipe.process_batch(frames)
+        torch.cuda.synchronize()
+        reset_counts(counters)
+        out_tf = pipe.process_batch(frames)
+        torch.cuda.synchronize()
+        counts = read_counts(counters)
+        check(counts == GRID_LAUNCHES, f"TF1-loaded process_batch launches {counts}")
+        times = []
+        for _ in range(n_timed):
+            t1 = time.perf_counter()
+            pipe.process_batch(frames)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        fps = 8.0 / statistics.median(times)
+        t1 = time.perf_counter()
+        common.load_fcn_params(fcn, mdir)
+        common.load_mono_params(mono, mdir)
+        torch.cuda.synchronize()
+        res["msgpack_load_s"] = time.perf_counter() - t1
+        same = all(torch.equal(v, from_tf[k]) for m in (fcn, mono)
+                   for k, v in m.state_dict().items())
+        check(same, "TF1-loaded parameters bit-equal to the .msgpack-loaded ones")
+        out_mp = pipe.process_batch(frames)
+        torch.cuda.synchronize()
+        bad = _outputs_mismatch(out_tf, out_mp)
+        check(not bad,
+              f"bf16 process_batch from TF1 weights bit-equal to .msgpack's (differ: {bad})")
+        res["process_batch"] = dict(launches=counts, frames_per_s=fps, batch_s_all=times)
+        log(f"  bf16 process_batch, batch 8, from TF1 weights: bit-equal to .msgpack's, "
+            f"launches {counts}, {fps:.2f} frames/s ({n_timed} timed batches); .msgpack load "
+            f"{res['msgpack_load_s']:.3f} s")
+        del pipe, fcn, mono, out_tf, out_mp, from_tf
+        torch.cuda.empty_cache()
+
+        frame_png = os.path.join(work, "scene_0.png")
+        cv2.imwrite(frame_png, frames[0].cpu().numpy())
+        sd = "semantic_depth_tpu_torch.cli.semantic_depth"
+        def cli(key, fcn_path, mono_path):
+            out_dir = os.path.join(work, f"cli_{key}")
+            secs, _ = _run_cli(f"single frame on {key} weights",
+                               [sd, "--input_frame", frame_png, "--semantic_model", fcn_path,
+                                "--monodepth_checkpoint", mono_path, "--save_data",
+                                "--results_dir", out_dir], repo, deterministic=True)
+            base = os.path.join(out_dir, "scene_0", "scene_0_output")
+            return dict(process_s=secs, files={
+                s: open(base + s, "rb").read()
+                for s in ("_distances.txt", "_disp.png", "_only_segmentation.png")})
+
+        t1 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:  # two processes at once
+            futures = {key: pool.submit(cli, key, *paths) for key, paths in (
+                ("tf1", (os.path.join(work, "fcn"), mono_prefix)), ("msgpack", (mdir, mdir)))}
+            runs = {key: f.result() for key, f in futures.items()}
+        res["cli_wall_s"] = time.perf_counter() - t1
+        dist = runs["tf1"]["files"]["_distances.txt"].decode().strip()
+        check(runs["tf1"]["files"] == runs["msgpack"]["files"],
+              "cli.semantic_depth on TF1 paths: _distances.txt, _disp.png and "
+              f"_only_segmentation.png equal the .msgpack run's (distances {dist!r}: nan "
+              "where the seeded networks mark no road or fence, so the PNGs carry the check)")
+        res["cli"] = {k: dict(process_s=v["process_s"],
+                              distances=v["files"]["_distances.txt"].decode())
+                      for k, v in runs.items()}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+        shutil.rmtree(work, ignore_errors=True)  # 2.2 GB of bundles and weights: none kept
+    return res
+
+
 def codec_info():
     """Which image codecs import on this host (information, not a check)."""
     code = ("import importlib\n"
@@ -3201,6 +3417,8 @@ def main() -> int:
     mark("13")
     any_shape = phase_any_shape(dev, counters, frames, rows, e2e)
     mark("14")
+    tf1 = phase_tf1_weights(dev, counters, frames, smi)
+    mark("15")
     log("  phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
 
     for name, row in rows.items():
@@ -3215,7 +3433,7 @@ def main() -> int:
     summary = dict(card=smi, build_s=build_s, geometry=geom, end_to_end=e2e, native=native,
                    entry_points=entry, trainers=trainers, frozen=frozen, multi_device=multi,
                    multi_device_training=training, params_and_tools=params,
-                   any_shape=any_shape, phase_walls_s=walls,
+                   any_shape=any_shape, tf1_weights=tf1, phase_walls_s=walls,
                    kernels=list(rows.values()),
                    wall_s=time.time() - t_start)
     log("summary: " + json.dumps(summary))

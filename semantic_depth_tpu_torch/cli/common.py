@@ -4,9 +4,10 @@
 Host-side by design: everything here happens before or after the frame
 program (reading frames, writing PNGs, PLYs and text files). cv2 is used
 when it imports (it is what the reference used, and keeps annotation and
-codec parity); PIL is the fallback. Nothing here needs matplotlib, flax or
-msgpack: the disparity PNG reproduces ``plt.imsave(..., cmap="gray")``
-pixel for pixel, and weight files are read by ``models.weights``.
+codec parity); PIL is the fallback. Nothing here needs matplotlib, flax,
+msgpack or TensorFlow: the disparity PNG reproduces ``plt.imsave(...,
+cmap="gray")`` pixel for pixel, weight files are read by ``models.weights``
+and TF1 checkpoints by ``models.tf_checkpoint``.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from ..io.ply import PlyCloud
 from ..models import FCN8s, Monodepth
 from ..models import weights as weights_lib
 from ..models.from_flax import load_flax
+from ..models.tf_checkpoint import latest_checkpoint
 from ..ops.pcl import MaskedCloud
 from ..pipeline import FrameOutputs, SemanticDepthPipeline
 from ..runtime import resolve_device
@@ -276,37 +278,55 @@ def annotate_sequence(
 # Weight loading
 # ---------------------------------------------------------------------------
 
-_CONVERT_HINT = (
-    "TensorFlow checkpoints are not read here: convert one to a .msgpack file with "
-    "`python -m semantic_depth_tpu.models.convert` (needs TensorFlow) and pass that file")
-
-
 def _load_msgpack(module: torch.nn.Module, path: str) -> torch.nn.Module:
     return load_flax(module, weights_lib.load_params(path))
 
 
-def fcn_weights_file(path: str) -> str:
-    """The FCN-8s weight file of a path: a .msgpack file, or fcn8s.msgpack in
-    a directory."""
+def fcn_weights_file(path: str) -> Optional[str]:
+    """The FCN-8s .msgpack of a path: the file itself, or fcn8s.msgpack in
+    a directory; None where there is none."""
     if os.path.isfile(path) and path.endswith(".msgpack"):
         return path
     native = os.path.join(path, "fcn8s.msgpack")
-    if os.path.isfile(native):
-        return native
-    raise FileNotFoundError(f"no FCN weights at {path} (no fcn8s.msgpack there). {_CONVERT_HINT}")
+    return native if os.path.isfile(native) else None
+
+
+def fcn_checkpoint(path: str) -> Optional[str]:
+    """The latest TF1 checkpoint under ``<path>/variables`` (the reference's
+    SavedModel layout, fcn.py:100-107) or ``path``; None where there is
+    none (a prefix among them, as ``tf.train.latest_checkpoint``)."""
+    ckpt_dir = os.path.join(path, "variables")
+    return latest_checkpoint(ckpt_dir if os.path.isdir(ckpt_dir) else path)
+
+
+def fcn_params(path: str, template):
+    """FCN-8s weights as a flax variable tree: ``fcn_weights_file``, else
+    ``fcn_checkpoint`` converted on the fly and checked strictly against
+    ``template`` (a flax tree of the network's parameters)."""
+    native = fcn_weights_file(path)
+    if native is not None:
+        return weights_lib.load_params(native)
+    ckpt = fcn_checkpoint(path)
+    if ckpt is None:
+        raise FileNotFoundError(f"no FCN weights found under {path}")
+    converted = weights_lib.convert_fcn_checkpoint(ckpt)
+    return weights_lib.graft_tree(template, converted, strict=True)[0]
 
 
 def load_fcn_params(model: FCN8s, path: str) -> FCN8s:
-    """Load FCN-8s weights into ``model`` from a .msgpack file or a directory
-    holding fcn8s.msgpack. ``path == 'random'`` keeps the seeded init."""
+    """Load FCN-8s weights into ``model`` from a .msgpack file, a directory
+    holding fcn8s.msgpack, or a TF1 checkpoint directory (converted on the
+    fly; ``fcn_params``). ``path == 'random'`` keeps the seeded init."""
     if path == "random":
         return model
-    return _load_msgpack(model, fcn_weights_file(path))
+    return load_flax(model, fcn_params(path, weights_lib.module_template(model)))
 
 
 def load_mono_params(model: Monodepth, path: str) -> Monodepth:
-    """Monodepth weights from a .msgpack file, or monodepth.msgpack inside a
-    directory argument or beside a TF checkpoint prefix. 'random' keeps the
+    """Monodepth weights from a .msgpack file, monodepth.msgpack inside a
+    directory argument or beside a TF checkpoint prefix, or else the TF1
+    checkpoint itself (a prefix, or a directory's latest; the
+    get_monodepth_model.sh layout), converted on the fly. 'random' keeps the
     seeded init."""
     if path == "random":
         return model
@@ -318,8 +338,8 @@ def load_mono_params(model: Monodepth, path: str) -> Monodepth:
     native = os.path.join(base, "monodepth.msgpack")
     if os.path.isfile(native):
         return _load_msgpack(model, native)
-    raise FileNotFoundError(
-        f"no monodepth weights at {path} (no monodepth.msgpack in {base}). {_CONVERT_HINT}")
+    converted = weights_lib.convert_monodepth_checkpoint(path, encoder=model.encoder)
+    return weights_lib.as_torch_params(model, converted)
 
 
 class FrozenPipeline:

@@ -6,15 +6,20 @@ augmentations and hyperparameters, per-epoch loss/IoU CSV logs, then
 ``fcn8s.msgpack`` (the weight file the inference CLIs of both packages
 read) and a step checkpoint under ``<model_dir>/<model>/checkpoints``.
 
-Test mode: loads ``<model_dir>/<model>/fcn8s.msgpack``, computes the
-test-set mean IoU, writes per-image overlay PNGs under
-runs/<model>/<timestamp>/, ``times.txt`` and the IoU log under
-log/<model>/iou/ (FCN.inference, fcn.py:384-492).
+Test mode: loads ``<model_dir>/<model>/fcn8s.msgpack``, or the reference's
+TF1 SavedModel variables under ``<model_dir>/<model>/variables`` (read and
+converted without TensorFlow), computes the test-set mean IoU, writes
+per-image overlay PNGs under runs/<model>/<timestamp>/, ``times.txt`` and
+the IoU log under log/<model>/iou/ (FCN.inference, fcn.py:384-492).
 
 Runs on the card (``--CUDA_DEVICE_NUMBER`` picks it) unless ``--device cpu``:
 
     python -m semantic_depth_tpu_torch.cli.fcn --mode train --epochs 100 \\
         --dataset roborace750 --data_dir data
+
+``--init_from`` warm-starts training from a .msgpack file, a full FCN-8s
+TF1 checkpoint, or the encoder-only VGG16 one (the reference's ``load_vgg``
+start: the decoder keeps its trunc-normal init).
 
 ``--mesh`` trains data/tensor-parallel (``parallel/train_step.py``) over the
 ranks torchrun launched, one process per mesh position, on the default
@@ -74,7 +79,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="train data/tensor-parallel over the ranks torchrun launched")
     p.add_argument("--init_from", type=str, default=None,
                    help="warm-start training from a .msgpack weight file (or a directory "
-                        "holding fcn8s.msgpack)")
+                        "holding fcn8s.msgpack), a full FCN-8s TF1 checkpoint, or an "
+                        "encoder-only VGG16 checkpoint (decoder keeps its init)")
     p.add_argument("--CUDA_DEVICE_NUMBER", default="0", help="the CUDA card to run on")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="'cpu' runs the plain PyTorch path on the CPU (tests)")
@@ -104,12 +110,38 @@ def make_dataset(args) -> SegmentationDataset:
 
 
 def load_weights(trainer: FCNTrainer, path: str) -> None:
-    """A .msgpack file, or a directory holding fcn8s.msgpack; a TF
-    checkpoint exits and names the converter."""
+    """Test mode's weights, by ``common.load_fcn_params``' rules: a .msgpack
+    file, a directory holding fcn8s.msgpack, or the directory's TF1
+    checkpoint (``<path>/variables`` or ``path``), converted strictly."""
+    trainer.set_params(common.fcn_params(path, trainer.params_tree()))
+
+
+def load_warm_start(trainer: FCNTrainer, path: str) -> None:
+    """Resolve --init_from: a .msgpack file (or a directory holding
+    fcn8s.msgpack), a full FCN-8s TF1 checkpoint (VGG and decoder, fcn.py's
+    save_model layout), or an encoder-only VGG16 checkpoint, whose decoder
+    then keeps the trainer's trunc-normal init, as the reference's load_vgg
+    warm start does (fcn8s/fcn.py:82-95). A directory means its latest
+    checkpoint (``<path>/variables`` first)."""
+    native = common.fcn_weights_file(path)
+    if native is not None:
+        trainer.set_params(weights_lib.load_params(native))
+        return
+    ckpt = common.fcn_checkpoint(path) if os.path.isdir(path) else path
+    if ckpt is None:
+        raise FileNotFoundError(f"no TF checkpoint found under {path}")
+    template = trainer.params_tree()
     try:
-        trainer.set_params(weights_lib.load_params(common.fcn_weights_file(path)))
-    except FileNotFoundError as e:
-        raise SystemExit(str(e))
+        converted = weights_lib.convert_fcn_checkpoint(ckpt)
+        params, _ = weights_lib.graft_tree(template, converted, strict=True)
+    except KeyError:
+        # no decoder variables -> encoder-only VGG16 checkpoint
+        converted = weights_lib.convert_vgg_checkpoint(ckpt)
+        params, loaded = weights_lib.graft_tree(template, converted)
+        if common.is_writer():
+            print(f"Warm start: loaded {len(loaded)} encoder layers from {ckpt}; "
+                  "decoder keeps trunc-normal init")
+    trainer.set_params(params)
 
 
 def make_trainer(args, device=None, mesh=None) -> FCNTrainer:
@@ -128,7 +160,7 @@ def make_trainer(args, device=None, mesh=None) -> FCNTrainer:
                       generator=torch.Generator().manual_seed(0))
     trainer = FCNTrainer(cfg, model=model, device=device or common.cli_device(args), mesh=mesh)
     if args.init_from:
-        load_weights(trainer, args.init_from)
+        load_warm_start(trainer, args.init_from)
     return trainer
 
 

@@ -18,35 +18,60 @@ carry an ``optax.adam`` state (``ScaleByAdamState``: ``count``, and ``mu`` /
 
 from __future__ import annotations
 
+import warnings
 from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
 
-def _tensor(a) -> torch.Tensor:
-    return torch.tensor(np.asarray(a, dtype=np.float32))
+def _tensor(a, kernel: bool = False, device=None) -> torch.Tensor:
+    """A float32 tensor of its own, a kernel permuted to torch's layout: on
+    the host in one copy, or copied to ``device`` as it lies and permuted
+    there (no host copy at all)."""
+    a = np.asarray(a, dtype=np.float32)
+    if kernel and a.ndim != 4:
+        raise ValueError(f"expected a 4-D kernel, got {a.shape}")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # a read-only array is only read
+        t = torch.from_numpy(a)
+    if device is not None and torch.device(device).type != "cpu":
+        t = t.to(device)
+        return t.permute(3, 2, 0, 1).contiguous() if kernel else t
+    return t.permute(3, 2, 0, 1).contiguous() if kernel else t.clone()
 
 
-def state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def state_dict_from_flax(variables: Mapping[str, Any], device=None) -> Dict[str, torch.Tensor]:
     """Flax ``{"params": {layer: {"kernel", "bias"}}}`` -> ``{"layer.weight",
-    "layer.bias"}``. Every layer of both networks is a 4-D conv or
-    transposed-conv kernel, and both map by the same axis permutation."""
+    "layer.bias"}`` (on the host, or on ``device``). Every layer of both
+    networks is a 4-D conv or transposed-conv kernel, and both map by the
+    same axis permutation."""
     params = variables.get("params", variables)
     out: Dict[str, torch.Tensor] = {}
     for name, leaf in params.items():
-        kernel = _tensor(leaf["kernel"])
-        if kernel.ndim != 4:
-            raise ValueError(f"{name}: expected a 4-D kernel, got {tuple(kernel.shape)}")
-        out[f"{name}.weight"] = kernel.permute(3, 2, 0, 1).contiguous()
-        out[f"{name}.bias"] = _tensor(leaf["bias"])
+        try:
+            out[f"{name}.weight"] = _tensor(leaf["kernel"], kernel=True, device=device)
+        except ValueError as e:
+            raise ValueError(f"{name}: {e}") from None
+        out[f"{name}.bias"] = _tensor(leaf["bias"], device=device)
     return out
 
 
 def load_flax(module: torch.nn.Module, variables: Mapping[str, Any]) -> torch.nn.Module:
     """Load flax parameters into ``module`` (strict: every key must match).
-    The tensors are cast to the module's dtype and device on copy."""
-    module.load_state_dict(state_dict_from_flax(variables), strict=True)
+    The tensors are cast to the module's dtype on copy, one layer at a
+    time and, for a module on a card, permuted there: the host holds
+    nothing beside ``variables`` but one layer's copy on a CPU module."""
+    params = variables.get("params", variables)
+    given = {f"{layer}.{kind}" for layer in params for kind in ("weight", "bias")}
+    wanted = set(module.state_dict())
+    if given != wanted:
+        raise RuntimeError(
+            f"Error(s) in loading state_dict for {type(module).__name__}: missing keys "
+            f"{sorted(wanted - given)}, unexpected keys {sorted(given - wanted)}")
+    device = next((p.device for p in module.parameters()), None)
+    for layer in params:
+        module.load_state_dict(state_dict_from_flax({layer: params[layer]}, device), strict=False)
     return module
 
 

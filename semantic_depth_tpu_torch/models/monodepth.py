@@ -1,11 +1,17 @@
 """Monodepth monocular disparity network (Godard et al., CVPR'17), vgg and
 resnet50 encoders.
 
-Port of the plain path of ``semantic_depth_tpu/models/monodepth.py``
-(``use_deconv=False``, as the reference runs it). Conv layers pad
-symmetrically by ``(k - 1) // 2`` before a VALID conv, which differs from
-SAME at stride 2; ELU activations; disparity heads ``0.3 * sigmoid(conv)``;
-nearest-neighbour x2 upsampling + 3x3 conv in the decoder.
+Port of the plain path of ``semantic_depth_tpu/models/monodepth.py``. Conv
+layers pad symmetrically by ``(k - 1) // 2`` before a VALID conv, which
+differs from SAME at stride 2; ELU activations; disparity heads
+``0.3 * sigmoid(conv)``; nearest-neighbour x2 upsampling + 3x3 conv in the
+decoder (``use_deconv=False``, as the reference runs it).
+
+``use_deconv=True`` is the published transposed-conv decoder: each upconv
+pads its input by 1, runs a 3x3 stride-2 transposed conv with SAME padding
+(TF's gradient-of-conv) and crops ``[3:-1]``, a net 2x upsample. That is
+torch's ``ConvTranspose2d(3, stride=2, padding=1, output_padding=1)`` on
+the unpadded input, then ELU.
 
 resnet50: a 7x7/2 stem, a 3x3/2 max pool over a ZERO-padded map (the JAX
 ``_maxpool`` pads with zeros, and ELU outputs reach -1, so ``-inf`` padding
@@ -56,12 +62,14 @@ class Monodepth(nn.Module):
         width_mult: float = 1.0,
         input_s2d: bool = False,
         generator: Optional[torch.Generator] = None,
+        use_deconv: bool = False,
     ):
         super().__init__()
         if encoder not in ("vgg", "resnet50"):
             raise ValueError(f"unknown encoder: {encoder!r}")
         self.encoder = encoder
         self.input_s2d = input_s2d
+        self.use_deconv = use_deconv
         self.compute_dtype = compute_dtype
 
         def ch(c):
@@ -95,7 +103,7 @@ class Monodepth(nn.Module):
         self.n_ups = len(dec)
         for level in range(self.n_ups, 0, -1):
             c = ch(dec[self.n_ups - level])
-            self._conv(f"upconv{level}", in_ch, c, 3)
+            self._up(f"upconv{level}", in_ch, c)
             cat_ch = c
             if 0 <= level - 2 < len(skip_ch):
                 cat_ch += skip_ch[level - 2]
@@ -107,7 +115,7 @@ class Monodepth(nn.Module):
             in_ch = c
         if input_s2d:
             c = ch(8)
-            self._conv("upconv0", in_ch, c, 3)
+            self._up("upconv0", in_ch, c)
             self._conv("iconv0", c + 2, c, 3)
             self._conv("disp0", c, 2, 3)
         for layer in self.children():
@@ -116,6 +124,19 @@ class Monodepth(nn.Module):
 
     def _conv(self, name: str, cin: int, cout: int, k: int, stride: int = 1) -> None:
         self.add_module(name, nn.Conv2d(cin, cout, k, stride, (k - 1) // 2))
+
+    def _up(self, name: str, cin: int, cout: int) -> None:
+        if self.use_deconv:
+            self.add_module(name, nn.ConvTranspose2d(cin, cout, 3, 2, 1, output_padding=1))
+        else:
+            self._conv(name, cin, cout, 3)
+
+    def _upconv(self, name: str, x: torch.Tensor, rows) -> torch.Tensor:
+        if not self.use_deconv:
+            return self._elu(name, spatial.upsample_nn(x, rows), rows)
+        if rows is not None:
+            raise ValueError("the transposed-conv decoder has no row-sharded form")
+        return F.elu(getattr(self, name)(x))
 
     def _conv_at(self, name: str, x: torch.Tensor, rows) -> torch.Tensor:
         return spatial.conv(getattr(self, name), x, rows)
@@ -158,7 +179,7 @@ class Monodepth(nn.Module):
         disps: List[torch.Tensor] = []
         udisp = None
         for level in range(self.n_ups, 0, -1):  # level = output stride exponent
-            x = self._elu(f"upconv{level}", spatial.upsample_nn(x, rows), rows)
+            x = self._upconv(f"upconv{level}", x, rows)
             cat = [x]
             skip_idx = level - 2  # the skip feeding level L is at H/2^(L-1)
             if 0 <= skip_idx < len(skips):
@@ -173,7 +194,7 @@ class Monodepth(nn.Module):
                     udisp = spatial.upsample_nn(disp, rows)
         if self.input_s2d:
             # level 0: from the packed grid back to the original resolution
-            x = self._elu("upconv0", spatial.upsample_nn(x, rows), rows)
+            x = self._upconv("upconv0", x, rows)
             up = spatial.upsample_nn(disps[-1], rows).to(x.dtype)
             x = self._elu("iconv0", torch.cat([x, up], dim=1), rows)
             disps.append(self._disp(0, x, rows))

@@ -1,6 +1,20 @@
-"""The JAX package's weight files without flax or msgpack (port of
-``save_params`` / ``load_params`` in ``semantic_depth_tpu/models/weights.py``).
+"""Weight files and TF1-checkpoint conversion without flax, msgpack or
+TensorFlow (port of ``semantic_depth_tpu/models/weights.py``).
 
+Conversion: the reference publishes its weight sets as TF1 checkpoints
+(the Udacity VGG16 SavedModel, the trained FCN-8s sets, the monodepth
+checkpoints). ``convert_monodepth_checkpoint``, ``convert_fcn_checkpoint``
+and ``convert_vgg_checkpoint`` map their variables onto the networks' flax
+variable trees, as the JAX functions of the same names do, reading the
+checkpoint with ``tf_checkpoint`` instead of TensorFlow. Nothing is
+transposed: conv kernels stay HWIO and ``conv2d_transpose`` kernels stay
+(H, W, O, I), the flax layout, and ``from_flax`` makes the one move to
+torch's. slim numbers a scope's layers Conv, Conv_1, ... in creation order,
+the order the modules create their layers in, so the mapping is positional
+per scope. ``as_torch_params`` (``as_jax_params`` there) loads a converted
+tree into a module strictly; ``graft_partial`` loads the layers present.
+
+Weight files:
 A weight file is flax's ``serialization.to_bytes`` of the variable tree: one
 msgpack map of string keys down to the leaves, each leaf a msgpack ext of
 type 1 whose payload is itself msgpack, ``(shape, dtype name, C-order
@@ -17,10 +31,15 @@ whose leaves are numpy arrays, as flax writes them.
 
 from __future__ import annotations
 
+import re
 import struct
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
+import torch
+
+from .from_flax import flax_from_module, load_flax
+from .tf_checkpoint import read_checkpoint
 
 _EXT_NDARRAY = 1
 _MAX_LEAF_BYTES = 2**30  # flax chunks leaves above this
@@ -245,3 +264,233 @@ def load_params(path: str) -> Dict[str, Any]:
     if not isinstance(tree, dict):
         raise MsgpackError(f"{path}: the document is a {type(tree).__name__}, not a map")
     return tree
+
+
+# --- TF1 checkpoints -------------------------------------------------------------
+
+
+def _read_tf_checkpoint(ckpt_path: str) -> Dict[str, np.ndarray]:
+    """Every model variable of a TF1 checkpoint (a prefix, or a directory
+    with a ``checkpoint`` state file) as numpy; optimizer slots and step
+    counters are never read."""
+    return read_checkpoint(ckpt_path)
+
+
+def _slim_layer_ids(names: List[str], scope: str) -> List[int]:
+    """Integer indices of slim auto-named layers (Conv, Conv_1, Conv_2, ...)
+    of one scope, sorted in creation order."""
+
+    def key(n):
+        m = re.match(rf"{re.escape(scope)}/Conv(?:_(\d+))?/", n)
+        if not m:
+            return None
+        return int(m.group(1) or 0)
+
+    return sorted({key(n) for n in names if key(n) is not None})
+
+
+# monodepth: the modules' layer creation order, which is the reference
+# graph's per-scope slim numbering
+_MONODEPTH_VGG_ENCODER = [f"enc{i}{s}" for i in range(1, 8) for s in ("a", "b")]
+
+
+def _monodepth_decoder_order(n_ups: int) -> List[str]:
+    names = []
+    for level in range(n_ups, 0, -1):
+        names.append(f"upconv{level}")
+        names.append(f"iconv{level}")
+        if level <= 4:
+            names.append(f"disp{level}")
+    return names
+
+
+def _monodepth_resnet_encoder_order() -> List[str]:
+    """Encoder conv creation order of the resnet50 variant. Every resconv
+    carries a projection shortcut (upstream's ``do_proj`` compares a TF1
+    tensor to an int with ``!=``, always True), so a published checkpoint
+    has 1 + 16 * 4 = 65 encoder convs."""
+    names = ["enc1"]
+    for blk, n in (("res2", 3), ("res3", 4), ("res4", 6), ("res5", 3)):
+        for i in range(n):
+            base = f"{blk}_{i}"
+            names += [f"{base}_c1", f"{base}_c2", f"{base}_c3", f"{base}_sc"]
+    return names
+
+
+def convert_monodepth_checkpoint(
+    ckpt_path: str, encoder: str = "vgg", use_deconv: bool = False
+) -> Dict:
+    """TF1 monodepth checkpoint -> flax variable tree for ``Monodepth``.
+
+    use_deconv: for checkpoints trained with the transposed-conv decoder
+    (slim names those ``Conv2d_transpose{_i}``, numbered apart from the
+    ``Conv{_i}`` sequence)."""
+    tf_vars = _read_tf_checkpoint(ckpt_path)
+    names = list(tf_vars)
+    params: Dict[str, Dict[str, np.ndarray]] = {}
+
+    def take(scope: str, slim_idx: int, our_name: str, op: str = "Conv"):
+        suffix = "" if slim_idx == 0 else f"_{slim_idx}"
+        w = tf_vars[f"{scope}/{op}{suffix}/weights"]
+        bias_name = f"{scope}/{op}{suffix}/biases"
+        if bias_name not in tf_vars:
+            # slim convs always have biases: a missing one means the naming
+            # or the mapping is wrong, which silently zeroed biases would hide
+            raise KeyError(
+                f"{bias_name} not in checkpoint (kernel found at "
+                f"{scope}/{op}{suffix}/weights) — unexpected variable naming"
+            )
+        params[our_name] = {"kernel": w, "bias": tf_vars[bias_name]}
+
+    if encoder == "vgg":
+        enc_names = _MONODEPTH_VGG_ENCODER
+        n_ups = 7
+    elif encoder == "resnet50":
+        enc_names = _monodepth_resnet_encoder_order()
+        n_ups = 6
+        n_enc = len(_slim_layer_ids(names, "model/encoder"))
+        if n_enc != len(enc_names):
+            raise ValueError(
+                f"resnet50 checkpoint has {n_enc} encoder convs; expected "
+                f"{len(enc_names)} — not a monodepth resnet50 checkpoint?"
+            )
+    else:
+        raise ValueError(encoder)
+
+    for idx, our in enumerate(enc_names):
+        take("model/encoder", idx, our)
+    if use_deconv:
+        conv_idx = deconv_idx = 0
+        for our in _monodepth_decoder_order(n_ups):
+            if our.startswith("upconv"):
+                take("model/decoder", deconv_idx, our, op="Conv2d_transpose")
+                deconv_idx += 1
+            else:
+                take("model/decoder", conv_idx, our)
+                conv_idx += 1
+    else:
+        for idx, our in enumerate(_monodepth_decoder_order(n_ups)):
+            take("model/decoder", idx, our)
+    return {"params": params}
+
+
+# FCN-8s: the Udacity VGG16 SavedModel's scopes and the module's names
+_FCN_VGG_NAME_MAP = {
+    f"conv{b}_{c}": f"conv{b}_{c}"
+    for b, n in [(1, 2), (2, 2), (3, 3), (4, 3), (5, 3)]
+    for c in range(1, n + 1)
+}
+_FCN_VGG_NAME_MAP.update({"fc6": "fc6", "fc7": "fc7"})
+
+# the decoder's tf.layers in graph order (fcn.py:165-213): auto-named conv2d,
+# conv2d_1, conv2d_2 and conv2d_transpose, conv2d_transpose_1, _2
+_FCN_DECODER_CONV_ORDER = ["score_fc7", "score_pool4", "score_pool3"]
+_FCN_DECODER_DECONV_ORDER = ["upscore2", "upscore4", "upscore8"]
+
+
+def _resolve_vgg_layer(tf_vars: Dict, tf_scope: str):
+    """A VGG conv's (kernel, bias) under any of the three export namings:
+    '<layer>/filter' (Udacity SavedModel), '<layer>/weights' (slim) or
+    '<layer>/kernel' (tf.layers)."""
+    for wkey, bkey in (
+        (f"{tf_scope}/filter", f"{tf_scope}/biases"),
+        (f"{tf_scope}/weights", f"{tf_scope}/biases"),
+        (f"{tf_scope}/kernel", f"{tf_scope}/bias"),
+    ):
+        if wkey in tf_vars:
+            return tf_vars[wkey], tf_vars[bkey]
+    raise KeyError(f"VGG variable for layer {tf_scope} not found in checkpoint")
+
+
+def convert_fcn_checkpoint(ckpt_path: str) -> Dict:
+    """TF1 FCN-8s checkpoint (VGG and decoder, fcn.py's save_model) -> flax
+    variable tree for ``FCN8s``; the transposed-conv kernels pass through
+    in TF's (H, W, O, I)."""
+    tf_vars = _read_tf_checkpoint(ckpt_path)
+    params: Dict[str, Dict[str, np.ndarray]] = {}
+
+    def put(our_name: str, w: np.ndarray, b: np.ndarray):
+        params[our_name] = {"kernel": w, "bias": b}
+
+    for tf_scope, our_name in _FCN_VGG_NAME_MAP.items():
+        put(our_name, *_resolve_vgg_layer(tf_vars, tf_scope))
+
+    def auto_name(base: str, i: int) -> str:
+        return base if i == 0 else f"{base}_{i}"
+
+    for i, our_name in enumerate(_FCN_DECODER_CONV_ORDER):
+        base = auto_name("conv2d", i)
+        put(our_name, tf_vars[f"{base}/kernel"], tf_vars[f"{base}/bias"])
+    for i, our_name in enumerate(_FCN_DECODER_DECONV_ORDER):
+        base = auto_name("conv2d_transpose", i)
+        put(our_name, tf_vars[f"{base}/kernel"], tf_vars[f"{base}/bias"])
+    return {"params": params}
+
+
+def convert_vgg_checkpoint(ckpt_path: str) -> Dict:
+    """Encoder-only VGG16 checkpoint (the 'vgg' download of helper.py:60-94)
+    -> flax variable tree of the encoder layers alone. The reference starts
+    its decoder from trunc-normal (fcn.py:82-95): load this with
+    ``graft_partial``."""
+    tf_vars = _read_tf_checkpoint(ckpt_path)
+    params: Dict[str, Dict[str, np.ndarray]] = {}
+    for tf_scope, our_name in _FCN_VGG_NAME_MAP.items():
+        w, b = _resolve_vgg_layer(tf_vars, tf_scope)
+        params[our_name] = {"kernel": w, "bias": b}
+    return {"params": params}
+
+
+def graft_tree(template: Mapping[str, Any], converted: Mapping[str, Any],
+               strict: bool = False) -> Tuple[Dict[str, Any], List[str]]:
+    """Put ``converted``'s leaves onto a flax variable tree ``template``
+    where both have them, cast to the template's dtype; the template's
+    other leaves stay (``strict``: a missing one raises KeyError). A shape
+    mismatch raises ValueError. Returns (tree, sorted loaded layer names)."""
+    out: Dict[str, Any] = {}
+    loaded = set()
+    for col, layers in template.items():
+        for layer, leaves in layers.items():
+            for kind, v in leaves.items():
+                key = (col, layer, kind)
+                cv = converted.get(col, {}).get(layer, {}).get(kind)
+                if cv is None:
+                    if strict:
+                        raise KeyError(f"missing converted weight for {key}")
+                    cv = v
+                else:
+                    cv = np.asarray(cv)
+                    if cv.shape != tuple(v.shape):
+                        raise ValueError(
+                            f"shape mismatch at {key}: ckpt {cv.shape} vs model {tuple(v.shape)}")
+                    cv = cv.astype(np.asarray(v).dtype, copy=False)
+                    loaded.add(layer)
+                out.setdefault(col, {}).setdefault(layer, {})[kind] = cv
+    return out, sorted(loaded)
+
+
+def module_template(module: torch.nn.Module) -> Dict[str, Any]:
+    """The module's parameters as a flax tree of float32 placeholders of
+    their flax shapes (no copy of the weights)."""
+    params: Dict[str, Any] = {}
+    for name, t in module.state_dict().items():
+        layer, kind = name.rsplit(".", 1)
+        shape = tuple(t.shape[i] for i in (2, 3, 1, 0)) if kind == "weight" else tuple(t.shape)
+        params.setdefault(layer, {})["kernel" if kind == "weight" else "bias"] = (
+            np.broadcast_to(np.float32(0), shape))
+    return {"params": params}
+
+
+def graft_partial(module: torch.nn.Module, converted: Mapping[str, Any]) -> List[str]:
+    """Load the layers of ``converted`` into ``module`` where present; the
+    others keep their (seeded) init. A shape mismatch raises. Returns the
+    loaded layer names."""
+    tree, loaded = graft_tree(flax_from_module(module), converted)
+    load_flax(module, tree)
+    return loaded
+
+
+def as_torch_params(module: torch.nn.Module, converted: Mapping[str, Any]) -> torch.nn.Module:
+    """Load a converted tree into ``module`` strictly (``as_jax_params``):
+    a missing layer raises KeyError, a shape mismatch ValueError."""
+    tree, _ = graft_tree(module_template(module), converted, strict=True)
+    return load_flax(module, tree)

@@ -1,13 +1,15 @@
 """Build and bind the host-side C++ of this directory: the ASCII PLY writer
 (``ply_writer.cpp``) and row parser (``ply_reader.cpp``), the fast paths of
-``io/ply.py``.
+``io/ply.py``, and the CRC-32C of TensorFlow checkpoints (``crc32c.cpp``),
+the fast path of ``models/tf_checkpoint.py``.
 
 At first use ``g++ -O3`` compiles both sources into one shared library under
 ``_build/``, named by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads; the library is renamed into place
 atomically, so processes that build at once never load half a file. It is
-bound with ``ctypes``. On a machine with no ``g++`` there is no library and
-``io/ply.py`` formats and parses with numpy, byte for byte the same.
+bound with ``ctypes``. On a machine with no ``g++`` there is no library:
+``io/ply.py`` formats and parses with numpy, byte for byte the same, and
+``models/tf_checkpoint.py`` checksums in Python, to the same value.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from typing import Optional
 
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR / "_build"
-SOURCES = ("ply_writer.cpp", "ply_reader.cpp")
+SOURCES = ("ply_writer.cpp", "ply_reader.cpp", "crc32c.cpp")
 FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _P_DOUBLE = ctypes.POINTER(ctypes.c_double)
@@ -34,6 +36,7 @@ _SIGNATURES = {
                                        ctypes.c_int64]),
     "read_ply_rows": (ctypes.c_int64, [ctypes.c_char_p, ctypes.c_int64, _P_DOUBLE,
                                        ctypes.c_int64, ctypes.c_int32]),
+    "crc32c_extend": (ctypes.c_uint32, [ctypes.c_uint32, ctypes.c_void_p, ctypes.c_int64]),
 }
 
 

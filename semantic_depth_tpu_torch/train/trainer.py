@@ -121,9 +121,14 @@ class AdamTrainer:
         self._load_params(state_dict_from_flax(params))
         self._reset_optimizer()
 
+    def params_tree(self) -> Dict[str, Any]:
+        """The full parameters as a flax-layout tree of float32 numpy arrays
+        (under a mesh gathered on every rank)."""
+        return flax_tree(self._full_params().items())
+
     def save_msgpack(self, path: str) -> str:
         """The parameters as the JAX package's ``.msgpack`` weight file."""
-        tree = flax_tree(self._full_params().items())
+        tree = self.params_tree()
         if self._writes():
             weights_lib.save_params(tree, path)
         self._done_writing()

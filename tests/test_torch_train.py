@@ -383,7 +383,39 @@ def _test_iou(log_dir):
         return float(f.read().splitlines()[-1].split(":")[1])
 
 
-def test_fcn_cli_train_then_test_on_the_cpu(tmp_path, wide_tree, monkeypatch):
+def _init_from_tf_checkpoints(tmp_path, args, capsys):
+    """``--init_from`` on TF1 checkpoints (written without TensorFlow by
+    ``tools/tf_bundle_writer_torch.py``): a full FCN-8s set loads strictly;
+    the encoder-only VGG16 prefix grafts the encoder and keeps the decoder's
+    seeded init, printing the warm-start line; the Udacity directory itself
+    (``variables/`` without a state file) raises, as in the JAX package."""
+    from tools.tf_bundle_writer_torch import _tf_names, seeded_params, write_bundle
+
+    tree = seeded_params("fcn", seed=4, width_mult=0.125, fc_channels=32)["params"]
+    names = _tf_names("fcn", tree)
+    write_bundle(str(tmp_path / "fcn_tf" / "variables" / "saved_model"), names)
+    vgg_prefix = tmp_path / "vgg" / "variables" / "variables"
+    write_bundle(str(vgg_prefix), {k: v for k, v in names.items() if not k.startswith("conv2d")},
+                 state_file=False)
+
+    def trainer(*extra):
+        return tcli.make_trainer(tcli.build_arg_parser().parse_args(
+            ["--mode", "train", "--epochs", "1", *args, *extra]))
+
+    seeded = trainer().params_tree()["params"]
+    full = trainer("--init_from", str(tmp_path / "fcn_tf")).params_tree()["params"]
+    warm = trainer("--init_from", str(vgg_prefix)).params_tree()["params"]
+    assert "Warm start: loaded 15 encoder layers" in capsys.readouterr().out
+    for layer in tree:
+        src = seeded if layer in DECODER_LAYERS else tree
+        for kind in ("kernel", "bias"):
+            np.testing.assert_array_equal(full[layer][kind], tree[layer][kind])
+            np.testing.assert_array_equal(warm[layer][kind], src[layer][kind])
+    with pytest.raises(FileNotFoundError, match="no TF checkpoint found under"):
+        trainer("--init_from", str(tmp_path / "vgg"))
+
+
+def test_fcn_cli_train_then_test_on_the_cpu(tmp_path, wide_tree, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
     args = _cli_args(wide_tree, tmp_path) + ["--device", "cpu"]
     tcli.main(["--mode", "train", "--epochs", "2", "--inference_flag"] + args)
@@ -401,9 +433,7 @@ def test_fcn_cli_train_then_test_on_the_cpu(tmp_path, wide_tree, monkeypatch):
     os.remove(next((tmp_path / "log" / name / "iou").iterdir()))
     tcli.main(["--mode", "test", "--model", name] + args)
     assert _test_iou(tmp_path / "log" / name / "iou") == trained
-    with pytest.raises(SystemExit, match="semantic_depth_tpu.models.convert"):
-        tcli.main(["--mode", "train", "--epochs", "1", "--init_from",
-                   str(tmp_path / "vgg16_tf_ckpt")] + args)
+    _init_from_tf_checkpoints(tmp_path, args, capsys)
     with pytest.raises(SystemExit, match="--mesh: no process group: .*torchrun"):
         tcli.main(["--mode", "train", "--epochs", "1", "--mesh"] + args)  # no torchrun here
 

@@ -109,8 +109,12 @@ def test_writer_rejects_leaves_over_the_chunk_limit(monkeypatch):
 
 def test_weight_path_rules(tmp_path, tiny_trees):
     """A .msgpack file, a directory holding fcn8s.msgpack / monodepth.msgpack,
-    monodepth.msgpack beside a checkpoint prefix, 'random'; anything else
-    (a TF checkpoint) raises and names the converter."""
+    monodepth.msgpack beside a checkpoint prefix, 'random'; otherwise a TF1
+    checkpoint, read and converted here (the FCN-8s ``<dir>/variables``
+    layout, a monodepth prefix or directory); nothing there raises
+    FileNotFoundError, as in the JAX package."""
+    from tools.tf_bundle_writer_torch import _tf_names, write_bundle
+
     fcn = FCN8s(num_classes=3, width_mult=0.0625, fc_channels=32)
     mono = Monodepth("vgg", width_mult=0.0625)
     want_fcn = torch.from_numpy(np.asarray(tiny_trees["fcn"]["params"]["fc7"]["bias"]))
@@ -127,12 +131,23 @@ def test_weight_path_rules(tmp_path, tiny_trees):
         assert torch.equal(common.load_mono_params(mono, path).disp1.bias.data, want_mono)
     before = mono.disp1.bias.data.clone()
     assert torch.equal(common.load_mono_params(mono, "random").disp1.bias.data, before)
-    empty = tmp_path / "tf_ckpt"
-    empty.mkdir()
-    with pytest.raises(FileNotFoundError, match="semantic_depth_tpu.models.convert"):
-        common.load_fcn_params(fcn, str(empty / "variables"))
-    with pytest.raises(FileNotFoundError, match="semantic_depth_tpu.models.convert"):
-        common.load_mono_params(mono, str(empty / "model_cityscapes"))
+    tf_dir = tmp_path / "tf_ckpt"
+    tf_dir.mkdir()
+    with pytest.raises(FileNotFoundError, match="no FCN weights found under"):
+        common.load_fcn_params(fcn, str(tf_dir))
+    with pytest.raises(FileNotFoundError, match="no TF checkpoint at"):
+        common.load_mono_params(mono, str(tf_dir / "model_cityscapes" / "model_cityscapes"))
+    trees = {k: jax.tree.map(np.asarray, v) for k, v in tiny_trees.items()}
+    write_bundle(str(tf_dir / "variables" / "saved_model"),
+                 _tf_names("fcn", trees["fcn"]["params"]))
+    mono_prefix = tf_dir / "model_cityscapes" / "model_cityscapes"
+    write_bundle(str(mono_prefix), _tf_names("monodepth", trees["mono"]["params"]))
+    for path in (str(tf_dir), str(tf_dir) + "/"):
+        fcn.fc7.bias.data.zero_()
+        assert torch.equal(common.load_fcn_params(fcn, path).fc7.bias.data, want_fcn)
+    for path in (str(mono_prefix), str(mono_prefix.parent)):
+        mono.disp1.bias.data.zero_()
+        assert torch.equal(common.load_mono_params(mono, path).disp1.bias.data, want_mono)
 
 
 def test_msgpack_struct_layout_of_an_array_leaf():
