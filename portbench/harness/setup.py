@@ -1,0 +1,192 @@
+"""A cell's set-up: the kernels, the weights and the frame pool from the
+seed, the port's pipeline, the calibration and the warm-up.
+
+Each step's seconds go into ``Bench.setup_parts``; the calibration is the
+reference's work, and ``setup_s`` leaves it out. The weights and the
+frames are made on the device from ``torch.Generator(device)`` seeded with
+the run's seed; the frames then go to the host once, as the numpy arrays
+that a camera loop hands the program, or stay on the device where the
+traffic's ``frames`` says so.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..reference import frame as ref_frame
+from ..reference import nets as ref_nets
+from . import scenes as scene_lib
+from . import weights as weight_lib
+from .cell import Cell, port_config
+from .standins import SceneFCN, SceneMono
+
+
+@dataclasses.dataclass
+class Bench:
+    cell: Cell
+    device: torch.device
+    pipe: object  # the port's SemanticDepthPipeline
+    batches: List  # the pool cut into the calls' inputs (numpy, or device tensors)
+    frames_dev: torch.Tensor  # the same pool on the device (the reference's input)
+    focal: float
+    mult: float
+    depth: float
+    weights: Optional[Dict]  # {"fcn", "mono"}: what both sides were given
+    scenes: Optional[Dict]  # {"labels", "disp_norm", "rw", "f2f"} of the stand-ins
+    setup_parts: Dict[str, float]
+    fcn_out: Optional[torch.Tensor] = None  # the last call's FCN-8s logits (seeded networks)
+
+    @property
+    def batch(self) -> int:
+        return int(self.cell.traffic["batch"])
+
+    def positions(self, i: int) -> slice:
+        """The pool frames of call ``i``."""
+        k = i % len(self.batches)
+        return slice(k * self.batch, (k + 1) * self.batch)
+
+    def call(self, arr):
+        """The traffic's entry point on one call's input."""
+        if self.cell.traffic["entry"] == "process_frame":
+            return self.pipe.process_frame(arr[0], self.focal, self.mult)
+        return self.pipe.process_batch(arr, self.focal, self.mult)
+
+    def scenes_of(self, sl: slice) -> Optional[Dict]:
+        if self.scenes is None:
+            return None
+        return {k: self.scenes[k][sl] for k in ("labels", "disp_norm")}
+
+
+def _timed(parts, key, fn):
+    t0 = time.perf_counter()
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    parts[key] = time.perf_counter() - t0
+    return out
+
+
+def _port_networks(c: Dict, weights: Dict, device):
+    """The port's FCN-8s and Monodepth, built without an init on the meta
+    device and given copies of the benchmark's weights through
+    ``load_state_dict`` (the copies become the parameters)."""
+    from semantic_depth_tpu_torch.models import FCN8s, Monodepth
+
+    dtype = torch.bfloat16 if c["compute_dtype"] == "bfloat16" else torch.float32
+    net = c["networks"]
+    with torch.device("meta"):  # no init: the weights are the benchmark's
+        fcn = FCN8s(num_classes=net["fcn8s"]["num_classes"], compute_dtype=dtype,
+                    fc_channels=net["fcn8s"]["fc_channels"], input_s2d=net["fcn8s"]["input_s2d"],
+                    width_mult=net.get("width_mult", 1.0))
+        mono = Monodepth(encoder=net["monodepth"]["encoder"], compute_dtype=dtype,
+                         input_s2d=net["monodepth"]["input_s2d"],
+                         width_mult=net.get("width_mult", 1.0))
+    for module, w in ((fcn, weights["fcn"]), (mono, weights["mono"])):
+        module.load_state_dict({k: v.clone() for k, v in w.items()}, assign=True)
+    return fcn, mono
+
+
+def make_weights(c: Dict, gen: torch.Generator) -> Dict:
+    """Both networks' weights from ``gen``, with the calibration's road
+    logit bias on every pixel phase of ``upscore8``."""
+    dtype = torch.bfloat16 if c["compute_dtype"] == "bfloat16" else torch.float32
+    net = c["networks"]
+    width = net.get("width_mult", 1.0)  # 1 but in the tests' tiny networks
+    fcn = weight_lib.make(ref_nets.fcn_layers(net["fcn8s"]["num_classes"],
+                                              net["fcn8s"]["input_s2d"], width,
+                                              net["fcn8s"]["fc_channels"]), gen, dtype)
+    mono = weight_lib.make(ref_nets.mono_layers(net["monodepth"]["input_s2d"], width), gen, dtype)
+    nc = net["fcn8s"]["num_classes"]
+    fcn["upscore8.bias"][0::nc] += c["calibration"]["road_logit_bias"]  # channel (phase * C + c)
+    return dict(fcn=fcn, mono=mono)
+
+
+def build(cell: Cell, seed: int, device) -> Bench:
+    from semantic_depth_tpu_torch.ops import _cuda
+    from semantic_depth_tpu_torch.pipeline import SemanticDepthPipeline
+
+    device = torch.device(device)
+    parts: Dict[str, float] = {}
+    c, t = cell.config, cell.traffic
+    if device.type == "cuda":
+        _timed(parts, "context", lambda: torch.empty(1, device=device))
+        _timed(parts, "kernels", _cuda.library)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    n_pool, b = int(t["pool"]), int(t["batch"])
+    if n_pool % b:
+        raise ValueError(f"pool {n_pool} is not a whole number of batches of {b}")
+
+    def pool():
+        params = scene_lib.pool_params(n_pool, gen)
+        imgs, _, _, rw, f2f = scene_lib.render_pool(params, t["frame_height"], t["frame_width"],
+                                                    c["camera"], gen)
+        stand = None
+        if t["networks"] == "scenes":
+            _, labels, disp, _, _ = scene_lib.render_pool(
+                params, c["input_height"], c["input_width"], c["camera"], gen, image=False,
+                disparity_mult=t["scene_disparity_multiplier"])
+            stand = dict(labels=labels, disp_norm=disp, rw=rw, f2f=f2f)
+        return imgs, stand
+
+    frames_dev, stand = _timed(parts, "pool", pool)
+    if t["frames"] == "device":  # frames that a decoder left on the card: no upload
+        batches = [frames_dev[i:i + b] for i in range(0, n_pool, b)]
+    else:
+        host = frames_dev.cpu().numpy()
+        batches = [np.ascontiguousarray(host[i:i + b]) for i in range(0, n_pool, b)]
+    cfg = port_config(c)
+    weights = None
+    if t["networks"] == "scenes":
+        fcn = SceneFCN(stand["labels"][:b])
+        mono = SceneMono(stand["disp_norm"][:b], c["networks"]["monodepth"]["flip_average"])
+        mult = float(t["scene_disparity_multiplier"])
+        parts["weights"] = 0.0
+    else:
+        weights = _timed(parts, "weights", lambda: make_weights(c, gen))
+        fcn, mono = _timed(parts, "port_load", lambda: _port_networks(c, weights, device))
+        mult = float(c["calibration"]["disparity_multiplier"])
+    pipe = SemanticDepthPipeline(cfg, fcn, mono, device=device)
+    focal = float(c["camera"]["focal"])
+    depth = float(c["depth"])
+    if weights is not None:  # the measuring depth where the reference's road cloud lies
+        depth = _timed(parts, "calibration", lambda: ref_frame.calibrated_depth(
+            frames_dev[:b], c, focal, mult, weights=weights))
+        pipe.config = dataclasses.replace(pipe.config, depth=depth)
+    bench = Bench(cell, device, pipe, batches, frames_dev, focal, mult, depth, weights, stand,
+                  parts)
+    if weights is not None:  # each call's FCN-8s output, held for the comparison
+        pipe.fcn.register_forward_hook(lambda m, a, out: setattr(bench, "fcn_out", out))
+    _timed(parts, "warmup", lambda: warm_up(bench))
+    return bench
+
+
+def warm_up(bench: Bench) -> None:
+    """Each call input once, then ``warmup_calls`` more; fails naming the
+    frame that leaves no road point or no finite distance."""
+    n = len(bench.batches) + int(bench.cell.traffic["warmup_calls"])
+    both = bench.cell.config["approach"] == "both" and bench.scenes is not None
+    for i in range(n):
+        t0 = time.perf_counter()
+        out = bench.call(bench.batches[i % len(bench.batches)])
+        if i == 0:
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            bench.setup_parts["first_call"] = time.perf_counter() - t0
+        if i >= len(bench.batches):
+            continue
+        kept = out.road_cloud.valid.reshape(-1, out.road_cloud.valid.shape[-1]).sum(-1)
+        rw = out.dist_rw.reshape(-1)
+        f2f = out.dist_f2f.reshape(-1)
+        for j in range(rw.shape[0]):
+            frame = i * bench.batch + j
+            if int(kept[j]) == 0 or not bool(torch.isfinite(rw[j])):
+                raise RuntimeError(f"warm-up: pool frame {frame} keeps {int(kept[j])} road points,"
+                                   f" dist_rw {float(rw[j])}")
+            if both and not bool(torch.isfinite(f2f[j])):
+                raise RuntimeError(f"warm-up: pool frame {frame} gives dist_f2f {float(f2f[j])}")
