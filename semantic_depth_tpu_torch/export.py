@@ -26,6 +26,7 @@ from torch import nn
 from .ops import exact_knn, knn_grid, mad, radius  # noqa: F401
 from .ops.pcl import MaskedCloud
 from .pipeline import FrameOutputs, SemanticDepthPipeline, _scalar
+from .runtime import tracing
 
 _SERIALIZED_NAMES = ((MaskedCloud, "semantic_depth_tpu_torch.MaskedCloud"),
                      (FrameOutputs, "semantic_depth_tpu_torch.FrameOutputs"))
@@ -92,7 +93,8 @@ def export_pipeline(
     cfg = pipe.config
     example = (torch.zeros(frame_shape, dtype=frame_dtype, device=pipe.device),
                _scalar(cfg.camera.focal), _scalar(float(frame_shape[-2])))
-    with torch.no_grad():
+    # program tracing off: a frozen program holds no profiler op
+    with torch.no_grad(), tracing(False):
         program = torch.export.export(_FrameProgram(pipe, batched, scalars_only), example,
                                       strict=False)
     # the trace keeps every op it ran; what no output reads goes (with

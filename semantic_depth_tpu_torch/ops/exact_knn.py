@@ -41,6 +41,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..runtime import annotate
 from . import _cuda
 from .pcl import valid_span
 
@@ -261,7 +262,8 @@ def knn_mean_distances_exact(
     ``launches``, and in ``large_k_launches`` for k > 32) at any B, or
     raise. ``skip=False`` scans every candidate in row order
     (validation)."""
-    return _exact_knn_op(xyz, valid, int(k), bool(skip))
+    with annotate("sd.k4", xyz.is_cuda):
+        return _exact_knn_op(xyz, valid, int(k), bool(skip))
 
 
 knn_mean_distances_exact.launches = 0

@@ -36,6 +36,7 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..runtime import annotate
 from . import _cuda
 
 # the specialised kernel of csrc/knn_grid.cu (the road chain's setting)
@@ -192,7 +193,8 @@ def knn_mean_distances_grid(
     plain version; CUDA tensors launch a kernel (one launch per
     ``MAX_FRAMES`` frames, counted in ``launches``; the general kernel's
     also in ``general_launches``) at any B, or raise."""
-    return _knn_grid_op(points, valid, k, list(window))
+    with annotate("sd.k1", points.is_cuda):
+        return _knn_grid_op(points, valid, k, list(window))
 
 
 knn_mean_distances_grid.launches = 0

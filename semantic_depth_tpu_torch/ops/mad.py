@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from ..runtime import annotate
 from . import _cuda
 
 _MAD_SCALE = 0.6745  # pcl.py:63
@@ -206,7 +207,8 @@ def mad_keep_mask(values: torch.Tensor, valid: torch.Tensor, thresholds) -> torc
     CUDA tensors launch the kernel (one cluster per row; one launch per
     ``MAX_ROWS`` rows, counted in ``launches``) at any R and N, or raise on a
     wrong rank or dtype or a threshold pair over odd halves."""
-    return _mad_op(values, valid, *_op_args(thresholds, values.shape[0]))
+    with annotate("sd.k2", values.is_cuda):
+        return _mad_op(values, valid, *_op_args(thresholds, values.shape[0]))
 
 
 mad_keep_mask.launches = 0

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..runtime import annotate
 from . import _cuda
 from .pcl import valid_span
 
@@ -181,7 +182,8 @@ def radius_counts(
     min(MAX_SPLITS, C / TILE)); one launch per ``MAX_FRAMES`` frames, counted
     in ``launches``) at any B and C, or raise on a wrong rank or dtype.
     ``skip=False`` turns the z-range skip off."""
-    return _radius_op(xyz, valid, weights, float(radius), bool(skip))
+    with annotate("sd.k3", xyz.is_cuda):
+        return _radius_op(xyz, valid, weights, float(radius), bool(skip))
 
 
 radius_counts.launches = 0

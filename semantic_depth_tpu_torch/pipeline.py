@@ -13,7 +13,9 @@ dimension, so each hand-written kernel launches once per batch: the kNN
 once (the windowed one, or the exact one under ``road.stat_mode="exact"``),
 the MAD filter four times (road y, road x, fence y, the fence pair) and the
 radius count once. ``process_frame_staged`` runs one frame stage by stage,
-for per-stage wall times.
+for per-stage wall times. The program opens ``runtime.annotate`` spans at
+its stages (``sd.call``, ``sd.upload``, ``sd.networks``, ``sd.tail`` and
+their children; the list is in ``runtime``), free while tracing is off.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from .models import FCN8s, Monodepth, flip_average_postprocess
 from .ops import neighbors, pcl
 from .ops.overlay import segmentation_overlay
 from .ops.resize import resize_clip_u8
-from .runtime import resolve_device, set_full_fp32
+from .runtime import CALL, annotate, resolve_device, set_full_fp32
 
 
 @dataclasses.dataclass
@@ -269,8 +271,10 @@ class SemanticDepthPipeline:
         """Resize + FCN-8s forward + 0.5-threshold masks for a frame batch.
         Returns (small f32 (B,h,w,3) 0..255, road_masks, fence_masks)."""
         cfg = self.config
-        small = resize_clip_u8(frames.float(), (cfg.input_height, cfg.input_width))
-        return (small,) + self._segment(small)
+        with annotate("sd.resize"):
+            small = resize_clip_u8(frames.float(), (cfg.input_height, cfg.input_width))
+        with annotate("sd.fcn"):
+            return (small,) + self._segment(small)
 
     def _segment(self, small: torch.Tensor, rows=None):
         """FCN-8s forward + 0.5-threshold (road, fence) masks (semantic_depth.py:544-556).
@@ -288,13 +292,14 @@ class SemanticDepthPipeline:
         ``small`` holds this rank's rows (``parallel.spatial``); every step
         after the network is row-local."""
         b = small.shape[0]
-        norm = small.float() / small.new_tensor(255.0)  # a true division on the card too
-        if self.config.monodepth.flip_average:
-            flip_batch = torch.cat([norm, norm.flip(2)], dim=0)  # (2B, h, w, 3)
-            disp_all = self.mono.disp_left(flip_batch, rows)
-            pairs = torch.stack([disp_all[:b], disp_all[b:]], dim=1)  # (B, 2, h, w)
-            return flip_average_postprocess(pairs) * disparity_mult
-        return self.mono.disp_left(norm, rows) * disparity_mult
+        with annotate("sd.monodepth"):
+            norm = small.float() / small.new_tensor(255.0)  # a true division on the card too
+            if self.config.monodepth.flip_average:
+                flip_batch = torch.cat([norm, norm.flip(2)], dim=0)  # (2B, h, w, 3)
+                disp_all = self.mono.disp_left(flip_batch, rows)
+                pairs = torch.stack([disp_all[:b], disp_all[b:]], dim=1)  # (B, 2, h, w)
+                return flip_average_postprocess(pairs) * disparity_mult
+            return self.mono.disp_left(norm, rows) * disparity_mult
 
     def _batch_geometry(self, small, road_masks, fence_masks, disps, cam) -> FrameOutputs:
         """Back-projection -> masked clouds -> denoise -> rw endpoints ->
@@ -305,23 +310,26 @@ class SemanticDepthPipeline:
         points3d = camera_lib.reproject_disparity(disps, cam)
         colors = small.flip(-1)  # BGR -> RGB (semantic_depth.py:161)
 
-        road = pcl.from_dense(points3d, colors, road_masks)
-        road, road_plane = _denoise_road(road, cfg, (h, w))
-        left_rw, right_rw, found, dist_rw = _road_width(cfg, road, road_plane, cam)
+        with annotate("sd.road"):
+            road = pcl.from_dense(points3d, colors, road_masks)
+            road, road_plane = _denoise_road(road, cfg, (h, w))
+            left_rw, right_rw, found, dist_rw = _road_width(cfg, road, road_plane, cam)
 
         if cfg.approach == "both":
-            fence = pcl.from_dense(points3d, colors, fence_masks)
-            fl, fr, lplane, rplane, left_f2f, right_f2f, dist_f2f = _fence_f2f(
-                fence, road_plane, cfg
-            )
+            with annotate("sd.fence"):
+                fence = pcl.from_dense(points3d, colors, fence_masks)
+                fl, fr, lplane, rplane, left_f2f, right_f2f, dist_f2f = _fence_f2f(
+                    fence, road_plane, cfg
+                )
             fl_valid, fr_valid = fl.valid, fr.valid
         else:
             dist_f2f, left_f2f, right_f2f, lplane, rplane, fl_valid, fr_valid = _no_fences(
                 b, h * w, small.device)
 
-        overlay = segmentation_overlay(
-            small, road_masks, fence_masks, cfg.segmenter.road_rgba, cfg.segmenter.fence_rgba
-        )
+        with annotate("sd.overlay"):
+            overlay = segmentation_overlay(
+                small, road_masks, fence_masks, cfg.segmenter.road_rgba, cfg.segmenter.fence_rgba
+            )
         return FrameOutputs(
             dist_rw=dist_rw, dist_f2f=dist_f2f, rw_found=found,
             left_pt_rw=left_rw, right_pt_rw=right_rw,
@@ -361,10 +369,13 @@ class SemanticDepthPipeline:
         (the ORIGINAL-width multiplier; the width factor is applied here).
         ``process_batch`` runs it, and ``export.py`` traces it, so the live
         and the frozen program are one code path."""
+        on_card = self.device.type == "cuda"
         cam, s_w = _scaled_camera(self.config, focal)
-        small, road_masks, fence_masks = self._batch_segment(frames)
-        disps = self._batch_disparity(small, disparity_mult * s_w)
-        return self._batch_geometry(small, road_masks, fence_masks, disps, cam)
+        with annotate("sd.networks", on_card):
+            small, road_masks, fence_masks = self._batch_segment(frames)
+            disps = self._batch_disparity(small, disparity_mult * s_w)
+        with annotate("sd.tail", on_card):
+            return self._batch_geometry(small, road_masks, fence_masks, disps, cam)
 
     @torch.inference_mode()
     def process_batch(
@@ -374,10 +385,13 @@ class SemanticDepthPipeline:
         the caller's channel order -> FrameOutputs with a leading batch axis.
         focal overrides the config camera's; disparity_mult defaults to the
         ORIGINAL frame width (semantic_depth.py:109)."""
-        frames = torch.as_tensor(frames).to(self.device)
-        focal, disparity_mult = resolve_frame_scalars(
-            self.config, frames.shape[2], focal, disparity_mult)
-        return self._process_batch_impl(frames, _scalar(focal), _scalar(disparity_mult))
+        on_card = self.device.type == "cuda"
+        with annotate(CALL, on_card):
+            with annotate("sd.upload", on_card):
+                frames = torch.as_tensor(frames).to(self.device)
+            focal, disparity_mult = resolve_frame_scalars(
+                self.config, frames.shape[2], focal, disparity_mult)
+            return self._process_batch_impl(frames, _scalar(focal), _scalar(disparity_mult))
 
     def process_frame(
         self, frame, focal: Optional[float] = None, disparity_mult: Optional[float] = None

@@ -7,10 +7,10 @@ card tests:
 * ``recording_kernel_calls``: the arguments of every kernel call (K1-K4)
   that a block of code makes (run the geometry tail inside it to get the
   frame program's own launches);
-* ``sync_debug``: the geometry tail's MAD and radius filters under
-  ``torch.cuda.set_sync_debug_mode``, so that a synchronising CUDA call in
-  them (a host-to-device copy of a threshold or a radius) raises or is
-  collected;
+* ``sync_debug``: the geometry tail's MAD and radius filters (or other
+  functions) under ``torch.cuda.set_sync_debug_mode``, so that a
+  synchronising CUDA call in them (a host-to-device copy of a threshold or
+  a radius) raises or is collected;
 * ``train_step_agreement``: how one trainer step on the card agrees with
   the same step on the CPU.
 """
@@ -137,11 +137,13 @@ def recording_kernel_calls():
 
 
 @contextlib.contextmanager
-def sync_debug(mode="error"):
-    """Inside the block, every call of ``SYNC_FREE_FILTERS`` runs under
+def sync_debug(mode="error", targets=SYNC_FREE_FILTERS):
+    """Inside the block, every call of the ``(module or class, name)``
+    functions of ``targets`` runs under
     ``torch.cuda.set_sync_debug_mode(mode)``. With ``"error"`` a
     synchronising CUDA call in them raises a RuntimeError; with ``"warn"``
-    the yielded list collects the first line of each such warning."""
+    the yielded list collects each such warning as ``"<file>:<line>:
+    <first line>"``, the line of Python that made the call."""
     found = []
 
     def wrap(fn, _name):
@@ -153,11 +155,12 @@ def sync_debug(mode="error"):
                     return fn(*args, **kw)
                 finally:
                     torch.cuda.set_sync_debug_mode("default")
-                    found.extend(str(w.message).splitlines()[0] for w in caught
+                    found.extend(f"{w.filename}:{w.lineno}: {str(w.message).splitlines()[0]}"
+                                 for w in caught
                                  if "called a synchronizing" in str(w.message))
         return run
 
-    with _wrapped(SYNC_FREE_FILTERS, wrap):
+    with _wrapped(targets, wrap):
         yield found
 
 

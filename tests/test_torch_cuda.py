@@ -389,6 +389,33 @@ def test_geometry_tail_makes_no_host_sync_in_mad_and_radius(cuda):
     assert bool(torch.isfinite(out.dist_rw).all())
 
 
+def test_host_syncs_count_what_sync_debug_warns(cuda):
+    """One munich process_batch under ``sync_debug("warn")`` on
+    ``process_batch``, the profiler and program tracing: the synchronising
+    runtime calls the profiler sees inside ``sd.call`` (the benchmark's
+    ``host_syncs``) are as many as the warnings. Over a short window, the
+    kernel wrappers' spans hold at least 0.98 of K1-K3's device ms."""
+    import types
+
+    from portbench.harness import program
+    from portbench.metrics import kernels_span_ms
+
+    torch.manual_seed(0)
+    pipe = pipeline.SemanticDepthPipeline(
+        config.munich_pipeline_config(), FCN8s(width_mult=0.0625, fc_channels=32),
+        Monodepth(width_mult=0.0625), device=cuda)
+    frames = scene_pool(2, 1024, 2048, seed=3)[0]
+    pipe.process_batch(frames)
+    got = program.sync_sites(lambda: pipe.process_batch(frames))
+    assert len(got["spans"]) == len(got["sites"]) > 0, got
+    bench = types.SimpleNamespace(device=cuda, batches=[frames], batch=len(frames),
+                                  call=pipe.process_batch)
+    t = dict(program=program.window(bench, 0.5))
+    k = t["program"]["kernel_ms"]
+    assert set(k) == {"K1", "K2", "K3"}
+    assert kernels_span_ms.read(t) >= 0.98 * sum(k.values()) / t["program"]["frames"]
+
+
 def _exact_knn_frames(c=1000):
     """Frames of one (4, c) batch, c off the kernel's tiles: a road-like
     cloud with nan garbage on its invalid rows, coincident duplicates, fewer

@@ -21,6 +21,7 @@ from semantic_depth_tpu.models import Monodepth as JaxMonodepth
 from semantic_depth_tpu_torch import config as tconfig
 from semantic_depth_tpu_torch import export as texport
 from semantic_depth_tpu_torch import pipeline as tpipeline
+from semantic_depth_tpu_torch import runtime
 from semantic_depth_tpu_torch.models import FCN8s, Monodepth
 from semantic_depth_tpu_torch.models.from_flax import load_flax
 from semantic_depth_tpu_torch.ops import exact_knn, knn_grid, mad, pcl, radius
@@ -59,13 +60,15 @@ def tiny():
 
 @pytest.fixture(scope="module")
 def programs(tiny, tmp_path_factory):
-    """Port programs: single-frame scalars-only and batched-2 full outputs."""
+    """Port programs: single-frame scalars-only and batched-2 full outputs,
+    exported with program tracing on; ``spans``, what tracing recorded."""
     _, tpipe, _ = tiny
     root = tmp_path_factory.mktemp("programs")
-    single = texport.export_pipeline(tpipe, str(root / "single.pt2"), (96, 192, 3))
-    batched = texport.export_pipeline(tpipe, str(root / "b2.pt2"), (2, 96, 192, 3),
-                                      batched=True, scalars_only=False)
-    return dict(single=single, batched=batched)
+    with runtime.tracing():
+        single = texport.export_pipeline(tpipe, str(root / "single.pt2"), (96, 192, 3))
+        batched = texport.export_pipeline(tpipe, str(root / "b2.pt2"), (2, 96, 192, 3),
+                                          batched=True, scalars_only=False)
+    return dict(single=single, batched=batched, spans=runtime.stats())
 
 
 def _assert_same(got, want, name=""):
@@ -211,6 +214,16 @@ def _op_calls(path):
         if t.startswith("sd_torch."):
             ops[t.split(".")[1]] = ops.get(t.split(".")[1], 0) + 1
     return ops, sum("round" in t for t in targets)
+
+
+def test_export_turns_program_tracing_off(programs):
+    """Exported inside ``runtime.tracing()``, the trace opened no span, and
+    no profiler op is in either program."""
+    assert programs["spans"] == {}
+    for key in ("single", "batched"):
+        targets = [str(n.target) for n in torch.export.load(programs[key]).graph.nodes
+                   if n.op == "call_function"]
+        assert targets and not any("profiler" in t for t in targets)
 
 
 def test_program_calls_the_kernel_ops(tiny, programs, tmp_path):
