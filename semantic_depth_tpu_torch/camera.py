@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from .config import CameraConfig
+from .runtime import device_constant
 
 
 def reproject_disparity(disp: torch.Tensor, camera: CameraConfig) -> torch.Tensor:
@@ -24,8 +25,9 @@ def reproject_disparity(disp: torch.Tensor, camera: CameraConfig) -> torch.Tenso
     xs = torch.arange(w, dtype=torch.float32, device=disp.device)[None, :]
     ys = torch.arange(h, dtype=torch.float32, device=disp.device)[:, None]
     # b / d as a true division: ``float / tensor`` in torch is
-    # reciprocal-then-multiply, which rounds twice
-    inv_w = torch.div(disp.new_tensor(camera.baseline), disp)
+    # reciprocal-then-multiply, which rounds twice; b is a constant kept on
+    # the disparity's device (no copy from the host)
+    inv_w = torch.div(device_constant(camera.baseline, disp.device), disp)
     x3 = (xs - camera.cx) * inv_w
     y3 = (camera.cy - ys) * inv_w
     z3 = (-camera.focal) * inv_w

@@ -14,12 +14,15 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..runtime import device_constant
+
 
 def _paste(frame: torch.Tensor, mask: torch.Tensor, rgba: Tuple[int, int, int, int]) -> torch.Tensor:
-    color = torch.tensor(rgba[:3], dtype=torch.float32, device=frame.device)
+    # constants kept on the frame's device (no copy from the host); alpha is
     # float32 a / 255 as JAX computes it (a CUDA tensor divided by a host
     # scalar would be multiplied by the reciprocal instead)
-    alpha = torch.tensor(np.float32(rgba[3]) / np.float32(255.0), device=frame.device)
+    color = device_constant(tuple(float(c) for c in rgba[:3]), frame.device)
+    alpha = device_constant(float(np.float32(rgba[3]) / np.float32(255.0)), frame.device)
     blended = frame * (1.0 - alpha) + color * alpha
     # round after each paste: rounding once at the end drifts 1 LSB on the
     # road-and-fence overlap pixels

@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..runtime import device_constant
 from . import mad as mad_ops
 
 
@@ -426,8 +427,9 @@ def plane_edge_width_cloud(
     qx = q[..., 0]
     left_q = _take_rows(q, torch.where(sel, qx, float("inf")).argmin(-1))
     right_q = _take_rows(q, torch.where(sel, qx, float("-inf")).argmax(-1))
-    # a tensor divisor: a true division on the card too
-    f = torch.as_tensor(focal, dtype=torch.float32, device=q.device)
+    # a tensor divisor (a true division on the card too), filled on the
+    # card: a copy of a host focal would drain the queue
+    f = q.new_empty((), dtype=torch.float32).fill_(focal)
     fp_l = -left_q[..., 2] / f
     fp_r = -right_q[..., 2] / f
     left_pt = torch.cat([left_q[..., :1] + (-0.5 * fp_l)[..., None], left_q[..., 1:]], -1)
@@ -485,7 +487,7 @@ def compact_slab_aware(
     xp = packed.xyz[..., axis]
     in_slab_p = packed.valid & (xp > lo) & (xp < hi)
     w = torch.where(in_slab_p, 1.0, stride_out.float()) * resid_i.float()
-    w = w / w.new_tensor(px_scale)  # a true division on the card too
+    w = w / device_constant(px_scale, w.device)  # a true division on the card too
     return packed, torch.where(packed.valid, w, 0.0)
 
 

@@ -16,6 +16,8 @@ radius count once. ``process_frame_staged`` runs one frame stage by stage,
 for per-stage wall times. The program opens ``runtime.annotate`` spans at
 its stages (``sd.call``, ``sd.upload``, ``sd.networks``, ``sd.tail`` and
 their children; the list is in ``runtime``), free while tracing is off.
+On the card the geometry tail replays a CUDA graph a shape, camera and
+config (``_batch_geometry``, ``graphs``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Optional
 import torch
 
 from . import camera as camera_lib
+from . import graphs
 from .config import PipelineConfig
 from .models import FCN8s, Monodepth, flip_average_postprocess
 from .ops import neighbors, pcl
@@ -242,6 +245,18 @@ def _no_fences(b: int, n: int, device):
     return torch.full((b,), nan, device=device), pt, pt, plane, plane, none, none
 
 
+def _tail_key(config: PipelineConfig, inputs, cam):
+    """The key of the geometry tail's CUDA graph: the config, each input's
+    shape, dtype and device, and the camera's fields as floats (a graph
+    holds the host scalars it was captured with). None where a camera field
+    is a tensor off the CPU: a graph would read it where it lay at capture."""
+    intrinsics = [getattr(cam, f.name) for f in dataclasses.fields(cam)]
+    if any(isinstance(v, torch.Tensor) and v.device.type != "cpu" for v in intrinsics):
+        return None
+    return (config, tuple((t.shape, t.dtype, t.device) for t in inputs),
+            tuple(float(v) for v in intrinsics))
+
+
 def _scalar(x) -> torch.Tensor:
     """A per-frame scalar as the frame program takes it: a 0-d float32 CPU
     tensor, as the JAX pipeline's traced float32 scalars. Elementwise ops
@@ -259,12 +274,17 @@ class SemanticDepthPipeline:
       device: ``None`` (the card; raises without one) or e.g. ``"cpu"``.
     """
 
+    # how the geometry tail's calls ran, over every pipeline: eagerly,
+    # captured into a CUDA graph (and replayed once), replayed
+    tail_graphs = dict(eager=0, captures=0, replays=0)
+
     def __init__(self, config: PipelineConfig, fcn: FCN8s, mono: Monodepth, device=None):
         self.config = config
         self.device = resolve_device(device)
         set_full_fp32()
         self.fcn = fcn.to(self.device).eval()
         self.mono = mono.to(self.device).eval()
+        self._tail_graphs = graphs.Cache()
 
     # --- the three batch stages ------------------------------------------
     def _batch_segment(self, frames: torch.Tensor):
@@ -302,6 +322,30 @@ class SemanticDepthPipeline:
             return self.mono.disp_left(norm, rows) * disparity_mult
 
     def _batch_geometry(self, small, road_masks, fence_masks, disps, cam) -> FrameOutputs:
+        """The geometry tail (``_tail_body``) over the whole batch. On the
+        card it runs as one CUDA graph a key (``_tail_key``): the first
+        sight of a key runs the body eagerly, the second captures it and
+        replays, every later one replays (``graphs``; at most
+        ``graphs.SIZE`` graphs a pipeline). The body runs eagerly wherever
+        an input is not a plain CUDA tensor, under torch.export or
+        torch.compile, and where a camera field is a tensor on the card.
+        ``tail_graphs`` counts how each call ran."""
+        inputs = (small, road_masks, fence_masks, disps)
+        key = _tail_key(self.config, inputs, cam) if graphs.graphable(inputs) else None
+        if key is not None:
+            graph = self._tail_graphs.get(key)
+            if graph is not None:
+                SemanticDepthPipeline.tail_graphs["replays"] += 1
+                return graph(inputs)
+            if self._tail_graphs.seen_before(key):
+                graph = graphs.Captured(self._tail_body, inputs, cam)
+                self._tail_graphs.put(key, graph)
+                SemanticDepthPipeline.tail_graphs["captures"] += 1
+                return graph(inputs)
+        SemanticDepthPipeline.tail_graphs["eager"] += 1
+        return self._tail_body(small, road_masks, fence_masks, disps, cam)
+
+    def _tail_body(self, small, road_masks, fence_masks, disps, cam) -> FrameOutputs:
         """Back-projection -> masked clouds -> denoise -> rw endpoints ->
         (f2f) -> overlay, over the whole batch at once."""
         cfg = self.config

@@ -1,10 +1,15 @@
-"""Device selection, numeric mode and tracing for the PyTorch port.
+"""Device selection, numeric mode, device constants and tracing for the
+PyTorch port.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (the tests do). A missing card raises instead of dropping quietly to the
 CPU: a CPU run is never a measurement of the port. ``trace`` and
 ``annotate`` are the port of the JAX package's ``runtime.trace`` /
 ``runtime.annotate`` on ``torch.profiler``.
+
+``device_constant`` keeps the frame program's float constants on the card:
+a constant copied from the host drains the card's queue, and a CUDA graph
+cannot capture the copy.
 
 Program tracing is off unless ``tracing()`` (or ``trace``) is entered.
 Off, ``annotate`` returns one shared null context; on, each span is a
@@ -21,6 +26,11 @@ events, read by ``stats()``. The program opens these spans:
         sd.fence   the fence chains and f2f (sd.k2 x2)
         sd.overlay
     sd.k1 .. sd.k4 the kernel wrappers (knn_grid, mad, radius, exact_knn); device
+
+A span opened while its stream is being captured into a CUDA graph records
+no CUDA events, and a graph's replay opens none of the spans inside it: on
+the card the spans below ``sd.tail`` appear on the tail's eager calls only
+(``pipeline._batch_geometry``).
 """
 
 from __future__ import annotations
@@ -59,6 +69,26 @@ def set_full_fp32() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+_CONSTANTS: Dict = {}
+
+
+def device_constant(value, device) -> torch.Tensor:
+    """``value`` (a float, or a tuple of floats) as a float32 tensor on
+    ``device``, made once per value and device and kept for the process (a
+    captured CUDA graph reads it at every replay). While torch.export or
+    torch.compile traces, a fresh tensor, so a traced program holds no
+    cached one."""
+    if torch.compiler.is_compiling():
+        return torch.tensor(value, dtype=torch.float32, device=device)
+    key = (value, torch.device(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        with torch.inference_mode(False):  # usable in and out of inference mode
+            t = _CONSTANTS.setdefault(key, torch.tensor(value, dtype=torch.float32,
+                                                        device=device))
+    return t
 
 
 _on = False  # program tracing; set only by ``tracing``
@@ -103,7 +133,8 @@ class _Span:
         self.call = _REC.call
         self.rf = torch.profiler.record_function(self.name)
         self.rf.__enter__()
-        self.events = (_REC.event(), _REC.event()) if self.device else None
+        timed = self.device and not torch.cuda.is_current_stream_capturing()
+        self.events = (_REC.event(), _REC.event()) if timed else None
         if self.events is not None:
             self.events[0].record()
         self.t0 = time.perf_counter_ns()
@@ -139,9 +170,9 @@ def annotate(name: str, device: bool = False):
     """A named span of the program. With tracing off (the default) this
     reads one flag and returns a shared null context. With it on, a
     ``torch.profiler.record_function`` range and, where ``device`` is true
-    (the caller's tensors are on the card), CUDA events on the current
-    stream around the block. Spans opened inside an ``sd.call`` carry its
-    call id."""
+    (the caller's tensors are on the card) and the stream is not being
+    captured into a CUDA graph, CUDA events on the current stream around
+    the block. Spans opened inside an ``sd.call`` carry its call id."""
     if not _on:
         return _NULL
     return _Span(name, device)

@@ -391,10 +391,13 @@ def test_geometry_tail_makes_no_host_sync_in_mad_and_radius(cuda):
 
 def test_host_syncs_count_what_sync_debug_warns(cuda):
     """One munich process_batch under ``sync_debug("warn")`` on
-    ``process_batch``, the profiler and program tracing: the synchronising
-    runtime calls the profiler sees inside ``sd.call`` (the benchmark's
-    ``host_syncs``) are as many as the warnings. Over a short window, the
+    ``process_batch``, the profiler and program tracing, its tail a replay:
+    the synchronising runtime calls the profiler sees inside ``sd.call``
+    (the benchmark's ``host_syncs``) are as many as the warnings, and none
+    is inside the tail. Over a short window of eager tails (each call a
+    new focal, so a key's first sight: a replay opens no kernel span), the
     kernel wrappers' spans hold at least 0.98 of K1-K3's device ms."""
+    import itertools
     import types
 
     from portbench.harness import program
@@ -406,14 +409,141 @@ def test_host_syncs_count_what_sync_debug_warns(cuda):
         Monodepth(width_mult=0.0625), device=cuda)
     frames = scene_pool(2, 1024, 2048, seed=3)[0]
     pipe.process_batch(frames)
+    pipe.process_batch(frames)  # the capture
+    replays = pipeline.SemanticDepthPipeline.tail_graphs["replays"]
     got = program.sync_sites(lambda: pipe.process_batch(frames))
+    assert pipeline.SemanticDepthPipeline.tail_graphs["replays"] == replays + 1
     assert len(got["spans"]) == len(got["sites"]) > 0, got
+    assert not set(got["spans"]) & program.TAIL, got
+    focals = itertools.count(400.0, 0.125)  # none the default 380: each a new key
     bench = types.SimpleNamespace(device=cuda, batches=[frames], batch=len(frames),
-                                  call=pipe.process_batch)
+                                  call=lambda f: pipe.process_batch(f, focal=next(focals)))
+    before = dict(pipeline.SemanticDepthPipeline.tail_graphs)
     t = dict(program=program.window(bench, 0.5))
+    after = pipeline.SemanticDepthPipeline.tail_graphs
+    assert after["eager"] > before["eager"]
+    assert (after["captures"], after["replays"]) == (before["captures"], before["replays"])
     k = t["program"]["kernel_ms"]
     assert set(k) == {"K1", "K2", "K3"}
     assert kernels_span_ms.read(t) >= 0.98 * sum(k.values()) / t["program"]["frames"]
+
+
+def _tail_inputs(b, h, w, seed, cuda):
+    """small, road, fence, disp of ``b`` analytic scenes at h x w."""
+    imgs, labels, disp_norm = scene_pool(b, h, w, seed=seed)[:3]
+    return [torch.from_numpy(a).to(cuda) for a in (
+        imgs.astype(np.float32), labels == 7, labels == 13,
+        disp_norm * np.float32(2048.0 * w / 512.0))]
+
+
+def _tail_pipe(cfg, cuda):
+    # the geometry tail does not touch the networks: tiny ones will do
+    return pipeline.SemanticDepthPipeline(
+        cfg, FCN8s(width_mult=0.0625, fc_channels=32), Monodepth(width_mult=0.0625), device=cuda)
+
+
+def _bits_equal(a, b) -> bool:
+    """Field by field, every bit (nan payloads included)."""
+    return all(x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+        x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+        for x, y in zip(a.leaves(), b.leaves()))
+
+
+def _graph_counts():
+    return dict(pipeline.SemanticDepthPipeline.tail_graphs)
+
+
+@pytest.mark.parametrize("b, h, w, changes, launches", [
+    (1, 256, 512, {}, [1, 4, 1, 0]),
+    (8, 256, 512, {}, [1, 4, 1, 0]),
+    (2, 1024, 2048, {}, [1, 4, 1, 0]),
+    (8, 256, 512, dict(road=dict(stat_mode="exact")), [0, 4, 1, 1]),
+    (8, 256, 512, dict(rw_estimator="plane_edge"), [1, 4, 1, 0]),
+], ids=["frame1", "batch8", "native", "exact", "plane_edge"])
+def test_replayed_tail_is_bit_equal_to_the_eager_body(cuda, b, h, w, changes, launches):
+    """At the frame1 shape, batch 8, a native batch, and batch 8 in exact
+    mode (K4) and with the plane-edge width: the first call of a key runs
+    eagerly, the second captures, the rest replay, each call's FrameOutputs
+    bit-equal to the eager body's field by field. A replay's fields are its
+    own (cloned out of the graph's pool): call N's are the same after two
+    calls on other inputs at the key, and the caller's inputs come back as
+    given. The kernel wrappers' launches rise at each replay as at an eager
+    call."""
+    cfg = config.munich_pipeline_config(input_height=h, input_width=w)
+    if "road" in changes:
+        changes = dict(changes, road=dataclasses.replace(cfg.road, **changes["road"]))
+    cfg = dataclasses.replace(cfg, **changes)
+    cam, _ = pipeline._scaled_camera(cfg, pipeline._scalar(cfg.camera.focal))
+    pipe = _tail_pipe(cfg, cuda)
+    scenes = [_tail_inputs(b, h, w, seed, cuda) for seed in (11, 12)]
+    with torch.inference_mode():
+        want = [pipe._tail_body(*args, cam) for args in scenes]
+        before = _graph_counts()
+        outs = []
+        for i in range(4):
+            before_i = [fn.launches for fn in _COUNTERS]
+            outs.append(pipe._batch_geometry(*scenes[i % 2], cam))
+            torch.cuda.synchronize()
+            assert [fn.launches - n for fn, n in zip(_COUNTERS, before_i)] == launches, i
+        kept = outs[2].map(torch.clone)
+        for _ in range(2):
+            pipe._batch_geometry(*scenes[1], cam)
+        torch.cuda.synchronize()
+    after = _graph_counts()
+    assert {k: after[k] - before[k] for k in after} == dict(eager=1, captures=1, replays=4)
+    for i, out in enumerate(outs):
+        assert _bits_equal(out, want[i % 2]), i
+        small, road, fence, disp = scenes[i % 2]
+        assert (out.frame_small is small and out.road_mask is road
+                and out.fence_mask is fence and out.disparity is disp)
+    assert _bits_equal(outs[2], kept)
+
+
+def test_tail_graphs_count_over_a_window_of_calls(cuda):
+    """n calls at one key: 1 eager, 1 capture, n - 2 replays. Calls with n
+    distinct focals capture nothing. A replaced config captures anew."""
+    cfg = config.munich_pipeline_config()
+    pipe = _tail_pipe(cfg, cuda)
+    args = _tail_inputs(2, 256, 512, 13, cuda)
+    n = 7
+
+    def calls(focals, config_=None):
+        before = _graph_counts()
+        if config_ is not None:
+            pipe.config = config_
+        with torch.inference_mode():
+            for f in focals:
+                cam, _ = pipeline._scaled_camera(pipe.config, pipeline._scalar(f))
+                pipe._batch_geometry(*args, cam)
+        torch.cuda.synchronize()
+        after = _graph_counts()
+        return {k: after[k] - before[k] for k in after}
+
+    assert calls([380.0] * n) == dict(eager=1, captures=1, replays=n - 2)
+    assert calls([381.0 + i for i in range(n)]) == dict(eager=n, captures=0, replays=0)
+    deeper = dataclasses.replace(cfg, depth=cfg.depth + 0.5)
+    assert calls([380.0] * 3, deeper) == dict(eager=1, captures=1, replays=1)
+    assert calls([380.0] * 2, cfg) == dict(eager=0, captures=0, replays=2)
+
+
+def test_replayed_tail_makes_no_host_sync(cuda):
+    """A replayed tail under ``sync_debug("error")``: no copy of a constant
+    from the host, no read of the card (the profiler's side is in
+    ``test_host_syncs_count_what_sync_debug_warns``)."""
+    from semantic_depth_tpu_torch.utils import probes
+
+    cfg = config.munich_pipeline_config()
+    cam, _ = pipeline._scaled_camera(cfg, pipeline._scalar(cfg.camera.focal))
+    pipe = _tail_pipe(cfg, cuda)
+    args = _tail_inputs(8, 256, 512, 14, cuda)
+    with torch.inference_mode():
+        for _ in range(2):
+            pipe._batch_geometry(*args, cam)
+        replays = _graph_counts()["replays"]
+        with probes.sync_debug("error", [(pipeline.SemanticDepthPipeline, "_batch_geometry")]):
+            out = pipe._batch_geometry(*args, cam)
+    assert _graph_counts()["replays"] == replays + 1
+    assert bool(torch.isfinite(out.dist_rw).all())
 
 
 def _exact_knn_frames(c=1000):

@@ -83,7 +83,8 @@ def main() -> int:
         return row
 
     with torch.inference_mode():
-        tail()
+        # the first call runs the tail eagerly (later ones replay its CUDA
+        # graph, which makes no Python call to record)
         with recording_kernel_calls() as calls:
             tail()
         torch.cuda.synchronize()
