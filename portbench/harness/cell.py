@@ -3,8 +3,10 @@
 A cell names a configuration (``configs[].file``) and a traffic mix
 (``traffic/<name>.json``); its comparison limits are in
 ``limits/<cell>.json`` and each per-layer metric's reader in
-``metrics/<name before the first dot>.py``. Adding a cell, a configuration,
-a mix or a metric adds files and entries; nothing here names one.
+``metrics/<name before the first dot>.py``; each network's reference is
+the module of the encoder its configuration names (``reference/nets.py``).
+Adding a cell, a configuration, a mix, a metric or an encoder adds files
+and entries; nothing here names one.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import importlib
 import json
 from pathlib import Path
 from typing import Dict, List
+
+from ..reference import frame as ref_frame
 
 BENCH_DIR = Path(__file__).resolve().parent.parent  # portbench/
 ROOT = BENCH_DIR.parent  # the checkout
@@ -46,6 +50,10 @@ def load(workload: str, manifest: Path = MANIFEST, data: Path = BENCH_DIR) -> Ce
     w = cells[workload]
     conf = {c["name"]: c for c in spec["configs"]}[w["config"]]
     config = json.loads((ROOT / conf["file"]).read_text())
+    try:  # each network's reference, before any weight is drawn
+        ref_frame.references(config)
+    except LookupError as e:
+        raise SystemExit(f"{workload}: {e}") from None
     traffic = json.loads((data / "traffic" / f"{w['traffic']}.json").read_text())
     limits_path = data / "limits" / f"{workload}.json"
     limits = json.loads(limits_path.read_text())["limits"] if limits_path.exists() else {}

@@ -19,7 +19,6 @@ import numpy as np
 import torch
 
 from ..reference import frame as ref_frame
-from ..reference import nets as ref_nets
 from . import scenes as scene_lib
 from . import weights as weight_lib
 from .cell import Cell, port_config
@@ -97,11 +96,12 @@ def make_weights(c: Dict, gen: torch.Generator) -> Dict:
     dtype = torch.bfloat16 if c["compute_dtype"] == "bfloat16" else torch.float32
     net = c["networks"]
     width = net.get("width_mult", 1.0)  # 1 but in the tests' tiny networks
-    fcn = weight_lib.make(ref_nets.fcn_layers(net["fcn8s"]["num_classes"],
-                                              net["fcn8s"]["input_s2d"], width,
-                                              net["fcn8s"]["fc_channels"]), gen, dtype)
-    mono = weight_lib.make(ref_nets.mono_layers(net["monodepth"]["input_s2d"], width), gen, dtype)
-    nc = net["fcn8s"]["num_classes"]
+    fcn_ref, mono_ref = ref_frame.references(c)
+    f, m = net["fcn8s"], net["monodepth"]
+    fcn = weight_lib.make(fcn_ref.layers(f["input_s2d"], width, f["num_classes"],
+                                         f["fc_channels"]), gen, dtype)
+    mono = weight_lib.make(mono_ref.layers(m["input_s2d"], width), gen, dtype)
+    nc = f["num_classes"]
     fcn["upscore8.bias"][0::nc] += c["calibration"]["road_logit_bias"]  # channel (phase * C + c)
     return dict(fcn=fcn, mono=mono)
 

@@ -26,6 +26,14 @@ def disparity_scale(cfg: dict, mult: float) -> torch.Tensor:
     return torch.tensor(float(mult), dtype=torch.float32) * (cfg["input_width"] / geometry.REF_W)
 
 
+def references(cfg: dict):
+    """(fcn, mono): the reference networks of the encoders that the
+    configuration names (``nets.network``)."""
+    net = cfg["networks"]
+    return (nets.network("fcn", net["fcn8s"]["encoder"]),
+            nets.network("mono", net["monodepth"]["encoder"]))
+
+
 def networks(frames: torch.Tensor, cfg: dict, mult: float, weights: Optional[Dict] = None,
              scenes: Optional[Dict] = None, prec: Precision = FLOAT32, chunk: int = 2) -> Dict:
     """(B, H0, W0, 3) uint8 frames -> small frames, FCN-8s class logits,
@@ -36,17 +44,18 @@ def networks(frames: torch.Tensor, cfg: dict, mult: float, weights: Optional[Dic
     net = cfg["networks"]
     thr = cfg["segmenter"]["threshold"]
     scale = disparity_scale(cfg, mult).to(frames.device)
+    fcn, mono = references(cfg)
     parts = []
     with full_float32():
         for f0 in range(0, frames.shape[0], chunk):
             small = geometry.resize_u8(frames[f0:f0 + chunk], (h, w), prec)
             if scenes is None:
-                logits = nets.fcn_logits(weights["fcn"], small, net["fcn8s"]["input_s2d"], prec)
+                logits = fcn.logits(weights["fcn"], small, net["fcn8s"]["input_s2d"], prec)
                 norm = small / small.new_tensor(255.0)
                 s2d = net["monodepth"]["input_s2d"]
-                disp = nets.mono_disparity(weights["mono"], norm, s2d, prec)
+                disp = mono.disparity(weights["mono"], norm, s2d, prec)
                 if net["monodepth"]["flip_average"]:
-                    flipped = nets.mono_disparity(weights["mono"], norm.flip(2), s2d, prec)
+                    flipped = mono.disparity(weights["mono"], norm.flip(2), s2d, prec)
                     disp = nets.flip_blend(disp, flipped)
             else:
                 labels = scenes["labels"][f0:f0 + chunk]

@@ -23,11 +23,30 @@ classes and puts them back, and gives monodepth a fifth decoder step
 Weights are a dict keyed as the layers below (``<layer>.weight``,
 ``<layer>.bias``), convolution weights (out, in, k, k), transposed ones
 (in, out, k, k). ``layers`` lists each layer with its shape and init law.
+
+A configuration names each network's encoder (``networks.fcn8s.encoder``,
+``networks.monodepth.encoder``); ``network(kind, encoder)`` gives its
+reference, for the kinds ``fcn`` and ``mono``. ``vgg16`` (fcn) and ``vgg``
+(mono) are the networks above; any other encoder is the module
+``<kind>_<encoder>.py`` beside this one (``mono_resnet50.py``), which:
+
+* exports ``layers(input_s2d, width)`` (fcn: ``layers(input_s2d, width,
+  num_classes, fc_channels)``), the ``Layer`` list whose names are the
+  port's parameter names, and the float32 forward pass, mono
+  ``disparity(weights, images01, input_s2d, prec)`` -> (B, H, W), fcn
+  ``logits(weights, images, input_s2d, prec)`` -> (B, H, W, C);
+* runs every convolution through ``_Net.conv`` / ``conv_t``, so that the
+  control's float8 operands and ``REORDERED`` reach it as they reach vgg;
+* computes in float32, and imports nothing of the program or of JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
+import re
+import types
+from pathlib import Path
 from typing import Dict, List
 
 import torch
@@ -206,3 +225,46 @@ def flip_blend(disp: torch.Tensor, disp_of_flipped: torch.Tensor) -> torch.Tenso
     l_mask = (1.0 - torch.clamp(20.0 * (ramp - 0.05), 0.0, 1.0)).expand(h, w)
     r_mask = l_mask.flip(-1)
     return r_mask * l_disp + l_mask * r_disp + (1.0 - l_mask - r_mask) * m_disp
+
+
+def _vgg16_layers(input_s2d: bool, width: float, num_classes: int, fc_channels: int):
+    return fcn_layers(num_classes, input_s2d, width, fc_channels)
+
+
+FORWARD = {"fcn": "logits", "mono": "disparity"}  # kind -> the forward pass's name
+_BUILT_IN = {
+    ("fcn", "vgg16"): types.SimpleNamespace(layers=_vgg16_layers, logits=fcn_logits),
+    ("mono", "vgg"): types.SimpleNamespace(layers=mono_layers, disparity=mono_disparity),
+}
+_HERE = Path(__file__).resolve().parent
+_SHOWN = _HERE.relative_to(_HERE.parent.parent)  # portbench/reference
+
+
+def encoders(kind: str) -> List[str]:
+    """Every encoder of ``kind`` that ``network`` resolves: the built-in one
+    and each ``<kind>_<encoder>.py`` here."""
+    files = {p.stem[len(kind) + 1:] for p in _HERE.glob(f"{kind}_*.py")}
+    return sorted(files | {e for k, e in _BUILT_IN if k == kind})
+
+
+def network(kind: str, encoder: str):
+    """The reference of the ``kind`` network with ``encoder``: ``layers`` and
+    the forward pass ``FORWARD[kind]``. Raises ``LookupError`` naming the
+    file looked for where there is none."""
+    if (kind, encoder) in _BUILT_IN:
+        return _BUILT_IN[kind, encoder]
+    name = f"{kind}_{encoder}"
+    shown = f"{_SHOWN}/{name}.py"
+    if kind not in FORWARD or not re.fullmatch(r"[A-Za-z0-9_]+", encoder):
+        raise LookupError(f"no {kind!r} network with the encoder {encoder!r}")
+    try:
+        module = importlib.import_module(f"{__package__}.{name}")
+    except ModuleNotFoundError as e:
+        if e.name != f"{__package__}.{name}":
+            raise
+        raise LookupError(f"no reference for the {kind} encoder {encoder!r}: "
+                          f"{shown} is not there") from None
+    missing = [a for a in ("layers", FORWARD[kind]) if not callable(getattr(module, a, None))]
+    if missing:
+        raise LookupError(f"{shown} does not define {', '.join(missing)}")
+    return module
