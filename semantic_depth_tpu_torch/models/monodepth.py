@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.s2d import space_to_depth
+from ..runtime import annotate
 from . import spatial
 from .init import lecun_normal_
 
@@ -174,30 +175,33 @@ class Monodepth(nn.Module):
         x = images.to(self.compute_dtype)
         if self.input_s2d:
             x = space_to_depth(x)  # (B, H/2, W/2, 12)
-        feats = self._encode(x.permute(0, 3, 1, 2), rows)
+        on_card = x.is_cuda
+        with annotate("sd.mono.encoder", on_card):
+            feats = self._encode(x.permute(0, 3, 1, 2), rows)
         skips, x = feats[:-1], feats[-1]
         disps: List[torch.Tensor] = []
         udisp = None
-        for level in range(self.n_ups, 0, -1):  # level = output stride exponent
-            x = self._upconv(f"upconv{level}", x, rows)
-            cat = [x]
-            skip_idx = level - 2  # the skip feeding level L is at H/2^(L-1)
-            if 0 <= skip_idx < len(skips):
-                cat.append(skips[skip_idx])
-            if udisp is not None:
-                cat.append(udisp.to(x.dtype))
-            x = self._elu(f"iconv{level}", torch.cat(cat, dim=1), rows)
-            if level <= 4:
-                disp = self._disp(level, x, rows)
-                disps.append(disp)
-                if level > 1:
-                    udisp = spatial.upsample_nn(disp, rows)
-        if self.input_s2d:
-            # level 0: from the packed grid back to the original resolution
-            x = self._upconv("upconv0", x, rows)
-            up = spatial.upsample_nn(disps[-1], rows).to(x.dtype)
-            x = self._elu("iconv0", torch.cat([x, up], dim=1), rows)
-            disps.append(self._disp(0, x, rows))
+        with annotate("sd.mono.decoder", on_card):
+            for level in range(self.n_ups, 0, -1):  # level = output stride exponent
+                x = self._upconv(f"upconv{level}", x, rows)
+                cat = [x]
+                skip_idx = level - 2  # the skip feeding level L is at H/2^(L-1)
+                if 0 <= skip_idx < len(skips):
+                    cat.append(skips[skip_idx])
+                if udisp is not None:
+                    cat.append(udisp.to(x.dtype))
+                x = self._elu(f"iconv{level}", torch.cat(cat, dim=1), rows)
+                if level <= 4:
+                    disp = self._disp(level, x, rows)
+                    disps.append(disp)
+                    if level > 1:
+                        udisp = spatial.upsample_nn(disp, rows)
+            if self.input_s2d:
+                # level 0: from the packed grid back to the original resolution
+                x = self._upconv("upconv0", x, rows)
+                up = spatial.upsample_nn(disps[-1], rows).to(x.dtype)
+                x = self._elu("iconv0", torch.cat([x, up], dim=1), rows)
+                disps.append(self._disp(0, x, rows))
         disps.reverse()  # finest first
         return [d.permute(0, 2, 3, 1) for d in disps]
 

@@ -312,7 +312,7 @@ class SemanticDepthPipeline:
         ``small`` holds this rank's rows (``parallel.spatial``); every step
         after the network is row-local."""
         b = small.shape[0]
-        with annotate("sd.monodepth"):
+        with annotate("sd.monodepth", small.is_cuda):
             norm = small.float() / small.new_tensor(255.0)  # a true division on the card too
             if self.config.monodepth.flip_average:
                 flip_batch = torch.cat([norm, norm.flip(2)], dim=0)  # (2B, h, w, 3)

@@ -20,7 +20,9 @@ events, read by ``stats()``. The program opens these spans:
     sd.call        process_batch (process_frame goes through it); device
       sd.upload    the frames' copy to the pipeline's device; device
       sd.networks  _batch_segment + _batch_disparity; device
-        sd.resize, sd.fcn, sd.monodepth
+        sd.resize, sd.fcn
+        sd.monodepth  the flip batch and its blend; device
+          sd.mono.encoder, sd.mono.decoder  Monodepth.forward's halves; device
       sd.tail      _batch_geometry; device
         sd.road    the road chain and its width (sd.k1 or sd.k4, sd.k2 x2, sd.k3)
         sd.fence   the fence chains and f2f (sd.k2 x2)

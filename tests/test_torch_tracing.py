@@ -19,6 +19,7 @@ torch.set_num_threads(2)  # six xdist workers share the machine
 # the tree the pipeline opens on one process_batch of the munich preset
 PARENT = {"sd.upload": "sd.call", "sd.networks": "sd.call", "sd.tail": "sd.call",
           "sd.resize": "sd.networks", "sd.fcn": "sd.networks", "sd.monodepth": "sd.networks",
+          "sd.mono.encoder": "sd.monodepth", "sd.mono.decoder": "sd.monodepth",
           "sd.road": "sd.tail", "sd.fence": "sd.tail", "sd.overlay": "sd.tail",
           "sd.k1": "sd.road", "sd.k3": "sd.road"}
 
