@@ -1,18 +1,22 @@
-"""CUDA graphs of the geometry tail (``SemanticDepthPipeline._batch_geometry``).
+"""CUDA graphs of the frame program's stages: the geometry tail
+(``SemanticDepthPipeline._batch_geometry``) and monodepth
+(``SemanticDepthPipeline._batch_disparity``).
 
-The tail is some 360 small kernels a call whose shapes the batch and the
-config fix, so on the card the host's launches, one op at a time, are its
-cost. A captured graph launches them all in one call. ``Cache`` keeps one
-graph a key, least recently used first out: the first sight of a key runs
-the tail eagerly (the warm-up a capture needs: K1's cached offset table, the
-allocator's blocks), the second captures it and replays, every later one
-replays. ``Captured`` is one graph with its static inputs and outputs.
+Each is many small kernels a call whose shapes the batch and the config
+fix (the tail some 360, monodepth's flip pair some 150), so on the card the
+host's launches, one op at a time, are their cost. A captured graph
+launches them all in one call. ``Cache`` keeps one graph a key, least
+recently used first out, and ``Cache.run`` serves a call: the first sight
+of a key runs the body eagerly (the warm-up a capture needs: K1's cached
+offset table, cuDNN's plans, the allocator's blocks), the second captures it
+and replays, every later one replays. ``Captured`` is one graph with its
+static inputs and outputs.
 
 A replay launches what the capture recorded, so the kernel wrappers'
 counters (``launches``, ``general_launches``, ``large_k_launches``) rise at
 each replay by what the capture counted, and not at the capture, which runs
-nothing. The program's spans inside the tail record no CUDA events while
-captured and open none at a replay (``runtime.annotate``).
+nothing. The program's spans inside a graphed body record no CUDA events
+while captured and open none at a replay (``runtime.annotate``).
 """
 
 from __future__ import annotations
@@ -57,11 +61,12 @@ def graphable(tensors) -> bool:
 
 class Captured:
     """``fn(*inputs, *args)`` captured as one CUDA graph on the inputs'
-    device, into a private memory pool. ``fn`` returns an object with
-    ``map`` (``FrameOutputs``). A call copies its inputs into the graph's
-    static ones, replays, and returns the outputs cloned out of the pool,
-    except an output that is a static input: that is the caller's own
-    tensor, as given."""
+    device, into a private memory pool. ``fn`` returns a tensor or an object
+    with ``map`` (``FrameOutputs``). A call copies its inputs into the
+    graph's static ones, replays, and returns the outputs cloned out of the
+    pool (``clone=False``: the static outputs themselves, overwritten at the
+    next replay), except an output that is a static input: that is the
+    caller's own tensor, as given."""
 
     def __init__(self, fn, inputs, *args):
         device = inputs[0].device
@@ -76,13 +81,21 @@ class Captured:
         self.launches = [a - b for a, b in zip(_read(self.counters), before)]
         _add(self.counters, [-d for d in self.launches])  # the capture launched nothing
 
-    def __call__(self, inputs):
+    def __call__(self, inputs, clone: bool = True):
         for static, t in zip(self.inputs, inputs):
             static.copy_(t)
         self.graph.replay()
         _add(self.counters, self.launches)
         own = {id(static): t for static, t in zip(self.inputs, inputs)}
-        return self.outputs.map(lambda v: own[id(v)] if id(v) in own else v.clone())
+
+        def take(v):
+            if id(v) in own:
+                return own[id(v)]
+            return v.clone() if clone else v
+
+        if isinstance(self.outputs, torch.Tensor):
+            return take(self.outputs)
+        return self.outputs.map(take)
 
 
 class Cache:
@@ -115,3 +128,20 @@ class Cache:
         self.graphs[key] = graph
         if len(self.graphs) > self.size:
             self.graphs.popitem(last=False)
+
+    def run(self, key, counts, fn, inputs, *args, clone: bool = True):
+        """``fn(*inputs, *args)`` at a graphable ``key`` by the rule above:
+        eagerly at the key's first sight, captured at its second, replayed
+        after. ``counts`` (``eager``, ``captures``, ``replays``) counts how;
+        ``clone`` is ``Captured``'s."""
+        graph = self.get(key)
+        if graph is not None:
+            counts["replays"] += 1
+            return graph(inputs, clone)
+        if self.seen_before(key):
+            graph = Captured(fn, inputs, *args)
+            self.put(key, graph)
+            counts["captures"] += 1
+            return graph(inputs, clone)
+        counts["eager"] += 1
+        return fn(*inputs, *args)

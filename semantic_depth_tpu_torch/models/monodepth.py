@@ -40,7 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.s2d import space_to_depth
-from ..runtime import annotate
+from ..runtime import annotate, device_constant
 from . import spatial
 from .init import lecun_normal_
 
@@ -221,7 +221,8 @@ def flip_average_postprocess(disp: torch.Tensor) -> torch.Tensor:
     m_disp = 0.5 * (l_disp + r_disp)
     # jnp.linspace(0, 1, w) in float32 is exactly i / (w - 1)
     ramp = torch.arange(w, dtype=torch.float32, device=disp.device)
-    ramp = ramp / ramp.new_tensor(float(w - 1))  # a true division on the card too
+    # a true division on the card too, with no copy from the host
+    ramp = ramp / device_constant(float(w - 1), disp.device)
     l_mask = (1.0 - torch.clamp(20.0 * (ramp - 0.05), 0.0, 1.0)).expand(h, w)
     r_mask = l_mask.flip(-1)
     return r_mask * l_disp + l_mask * r_disp + (1.0 - l_mask - r_mask) * m_disp

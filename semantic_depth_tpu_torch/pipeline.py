@@ -17,7 +17,8 @@ for per-stage wall times. The program opens ``runtime.annotate`` spans at
 its stages (``sd.call``, ``sd.upload``, ``sd.networks``, ``sd.tail`` and
 their children; the list is in ``runtime``), free while tracing is off.
 On the card the geometry tail replays a CUDA graph a shape, camera and
-config (``_batch_geometry``, ``graphs``).
+config (``_batch_geometry``), and monodepth one a shape and weights
+(``_batch_disparity``; ``graphs``).
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from .models import FCN8s, Monodepth, flip_average_postprocess
 from .ops import neighbors, pcl
 from .ops.overlay import segmentation_overlay
 from .ops.resize import resize_clip_u8
-from .runtime import CALL, annotate, resolve_device, set_full_fp32
+from .runtime import CALL, annotate, device_constant, resolve_device, set_full_fp32
 
 
 @dataclasses.dataclass
@@ -257,6 +258,17 @@ def _tail_key(config: PipelineConfig, inputs, cam):
             tuple(float(v) for v in intrinsics))
 
 
+def _mono_key(config: PipelineConfig, mono: torch.nn.Module, small: torch.Tensor):
+    """The key of monodepth's CUDA graph: ``small``'s shape, dtype and
+    device, the flip setting, and what pins the weights the graph reads:
+    the module itself and its parameters' and buffers' storage, so that a
+    module put in its place, or a ``.to()``, takes a new key (weights loaded
+    in place are read at the next replay). ``disparity_mult`` is not in it:
+    the multiply runs after the replay."""
+    weights = tuple(t.data_ptr() for t in (*mono.parameters(), *mono.buffers()))
+    return (small.shape, small.dtype, small.device, config.monodepth.flip_average, mono, weights)
+
+
 def _scalar(x) -> torch.Tensor:
     """A per-frame scalar as the frame program takes it: a 0-d float32 CPU
     tensor, as the JAX pipeline's traced float32 scalars. Elementwise ops
@@ -277,6 +289,7 @@ class SemanticDepthPipeline:
     # how the geometry tail's calls ran, over every pipeline: eagerly,
     # captured into a CUDA graph (and replayed once), replayed
     tail_graphs = dict(eager=0, captures=0, replays=0)
+    mono_graphs = dict(eager=0, captures=0, replays=0)  # monodepth's, likewise
 
     def __init__(self, config: PipelineConfig, fcn: FCN8s, mono: Monodepth, device=None):
         self.config = config
@@ -285,6 +298,7 @@ class SemanticDepthPipeline:
         self.fcn = fcn.to(self.device).eval()
         self.mono = mono.to(self.device).eval()
         self._tail_graphs = graphs.Cache()
+        self._mono_graphs = graphs.Cache()
 
     # --- the three batch stages ------------------------------------------
     def _batch_segment(self, frames: torch.Tensor):
@@ -307,19 +321,38 @@ class SemanticDepthPipeline:
 
     def _batch_disparity(self, small: torch.Tensor, disparity_mult: float,
                          rows=None) -> torch.Tensor:
-        """Monodepth forward on the flip batch (semantic_depth.py:667-678);
-        ``disparity_mult`` already carries the width factor. ``rows``:
-        ``small`` holds this rank's rows (``parallel.spatial``); every step
-        after the network is row-local."""
-        b = small.shape[0]
+        """Monodepth on the flip batch (``_mono_body``) times
+        ``disparity_mult``, which already carries the width factor. On the
+        card the body runs as one CUDA graph a key (``_mono_key``), by the
+        tail's rule (``_batch_geometry``); the multiply runs after the
+        replay, on the graph's static output, so the result is the caller's
+        own tensor. The body runs eagerly where ``small`` is not a plain
+        CUDA tensor, under torch.export or torch.compile, and where ``rows``
+        is given (``small`` holds this rank's rows, ``parallel.spatial``:
+        the halos pass through ``comm``). ``mono_graphs`` counts how each
+        call ran."""
+        counts = SemanticDepthPipeline.mono_graphs
         with annotate("sd.monodepth", small.is_cuda):
-            norm = small.float() / small.new_tensor(255.0)  # a true division on the card too
-            if self.config.monodepth.flip_average:
-                flip_batch = torch.cat([norm, norm.flip(2)], dim=0)  # (2B, h, w, 3)
-                disp_all = self.mono.disp_left(flip_batch, rows)
-                pairs = torch.stack([disp_all[:b], disp_all[b:]], dim=1)  # (B, 2, h, w)
-                return flip_average_postprocess(pairs) * disparity_mult
-            return self.mono.disp_left(norm, rows) * disparity_mult
+            if rows is not None or not graphs.graphable((small,)):
+                counts["eager"] += 1
+                return self._mono_body(small, rows) * disparity_mult
+            key = _mono_key(self.config, self.mono, small)
+            disp = self._mono_graphs.run(key, counts, self._mono_body, (small,), clone=False)
+            return disp * disparity_mult
+
+    def _mono_body(self, small: torch.Tensor, rows=None) -> torch.Tensor:
+        """Monodepth forward on the flip batch and the flip-average
+        postprocess (semantic_depth.py:667-678), or the frame alone with the
+        flip off; every step after the network is row-local."""
+        b = small.shape[0]
+        # a true division on the card too, with no copy from the host
+        norm = small.float() / device_constant(255.0, small.device)
+        if self.config.monodepth.flip_average:
+            flip_batch = torch.cat([norm, norm.flip(2)], dim=0)  # (2B, h, w, 3)
+            disp_all = self.mono.disp_left(flip_batch, rows)
+            pairs = torch.stack([disp_all[:b], disp_all[b:]], dim=1)  # (B, 2, h, w)
+            return flip_average_postprocess(pairs)
+        return self.mono.disp_left(norm, rows)
 
     def _batch_geometry(self, small, road_masks, fence_masks, disps, cam) -> FrameOutputs:
         """The geometry tail (``_tail_body``) over the whole batch. On the
@@ -330,20 +363,13 @@ class SemanticDepthPipeline:
         an input is not a plain CUDA tensor, under torch.export or
         torch.compile, and where a camera field is a tensor on the card.
         ``tail_graphs`` counts how each call ran."""
+        counts = SemanticDepthPipeline.tail_graphs
         inputs = (small, road_masks, fence_masks, disps)
         key = _tail_key(self.config, inputs, cam) if graphs.graphable(inputs) else None
-        if key is not None:
-            graph = self._tail_graphs.get(key)
-            if graph is not None:
-                SemanticDepthPipeline.tail_graphs["replays"] += 1
-                return graph(inputs)
-            if self._tail_graphs.seen_before(key):
-                graph = graphs.Captured(self._tail_body, inputs, cam)
-                self._tail_graphs.put(key, graph)
-                SemanticDepthPipeline.tail_graphs["captures"] += 1
-                return graph(inputs)
-        SemanticDepthPipeline.tail_graphs["eager"] += 1
-        return self._tail_body(small, road_masks, fence_masks, disps, cam)
+        if key is None:
+            counts["eager"] += 1
+            return self._tail_body(*inputs, cam)
+        return self._tail_graphs.run(key, counts, self._tail_body, inputs, cam)
 
     def _tail_body(self, small, road_masks, fence_masks, disps, cam) -> FrameOutputs:
         """Back-projection -> masked clouds -> denoise -> rw endpoints ->
@@ -457,9 +483,9 @@ class SemanticDepthPipeline:
         Returns (FrameOutputs, times): seconds under the keys read, semantic,
         disparity, to3D, road, rw, fences, f2f. The fence chain runs its two
         x cuts as two MAD launches (five per frame in all). The first call
-        for each frame shape runs every stage once untimed, so the times are
+        for each frame shape runs every stage twice untimed, so the times are
         execution and not the first use's set-up (cuDNN plans, the kernel
-        library's load)."""
+        library's load, the capture of monodepth's CUDA graph on the card)."""
         cfg = self.config
         h, w = cfg.input_height, cfg.input_width
         frame = torch.as_tensor(frame).to(self.device)
@@ -469,8 +495,9 @@ class SemanticDepthPipeline:
         stages = self._stages
         warm_key = tuple(frame.shape)
         if getattr(self, "_stages_warm", None) != warm_key:
-            self._stages_warm = warm_key  # set first: the warm-up call recurses
-            self.process_frame_staged(frame, focal, disparity_mult)
+            self._stages_warm = warm_key  # set first: the warm-up calls recurse
+            for _ in range(2):  # a key's second sight captures monodepth's graph
+                self.process_frame_staged(frame, focal, disparity_mult)
         cam, s_w = _scaled_camera(cfg, _scalar(focal))
         mult = _scalar(disparity_mult) * s_w
         times = {}

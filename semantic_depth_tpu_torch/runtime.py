@@ -31,8 +31,8 @@ events, read by ``stats()``. The program opens these spans:
 
 A span opened while its stream is being captured into a CUDA graph records
 no CUDA events, and a graph's replay opens none of the spans inside it: on
-the card the spans below ``sd.tail`` appear on the tail's eager calls only
-(``pipeline._batch_geometry``).
+the card the spans below ``sd.tail`` and ``sd.monodepth`` appear on eager
+calls only (``pipeline._batch_geometry``, ``pipeline._batch_disparity``).
 """
 
 from __future__ import annotations

@@ -546,6 +546,129 @@ def test_replayed_tail_makes_no_host_sync(cuda):
     assert bool(torch.isfinite(out.dist_rw).all())
 
 
+# --- monodepth's CUDA graph (``_batch_disparity``) ---------------------------
+
+def _mono_graph_counts():
+    return dict(pipeline.SemanticDepthPipeline.mono_graphs)
+
+
+def _mono_pipe(cuda, net="vgg", b=8):
+    """A bfloat16 pipeline at a cell's widths: ``vgg`` and ``resnet50`` the
+    munich flip batch at 256x512, ``native`` the s2d vgg at 1024x2048 with
+    the flip off, ``scenes`` the stand-in ``SceneMono`` of ``b`` scenes."""
+    from portbench.harness.standins import SceneFCN, SceneMono
+
+    native = net == "native"
+    cfg = config.munich_pipeline_config(
+        compute_dtype="bfloat16", **(dict(input_height=1024, input_width=2048) if native else {}))
+    cfg = dataclasses.replace(cfg, monodepth=dataclasses.replace(
+        cfg.monodepth, encoder="resnet50" if net == "resnet50" else "vgg",
+        flip_average=not native))
+    fcn = FCN8s(width_mult=0.0625, fc_channels=32)
+    if net == "scenes":
+        _, labels, disp_norm = scene_pool(b, 256, 512, seed=5)[:3]
+        fcn = SceneFCN(torch.from_numpy(labels))
+        mono = SceneMono(torch.from_numpy(disp_norm), True)
+    else:
+        torch.manual_seed(1)
+        with torch.device(cuda):
+            mono = Monodepth(encoder=cfg.monodepth.encoder, compute_dtype=torch.bfloat16,
+                             input_s2d=native)
+    return pipeline.SemanticDepthPipeline(cfg, fcn, mono, device=cuda)
+
+
+def _smalls(pipe, b, cuda, seeds=(21, 22)):
+    h, w = pipe.config.input_height, pipe.config.input_width
+    return [torch.rand((b, h, w, 3), generator=torch.Generator(cuda).manual_seed(s),
+                       device=cuda) * 255.0 for s in seeds]
+
+
+def _same_bits(a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.parametrize("net, b", [
+    ("vgg", 1), ("vgg", 8), ("resnet50", 8), ("native", 2), ("scenes", 8),
+], ids=["frame1", "batch8", "resnet50", "native", "scenes"])
+def test_replayed_monodepth_is_bit_equal_to_the_eager_body(cuda, net, b):
+    """At the cells' shapes (the native s2d path at batch 2): the first call
+    of a key runs eagerly, the second captures, the rest replay, each the
+    eager body times its call's multiplier (a new one each call: not in the
+    key) to the bit. Each result is the caller's own: read after every
+    later call, none has changed."""
+    pipe = _mono_pipe(cuda, net, b)
+    smalls = _smalls(pipe, b, cuda)
+    mults = [pipeline._scalar(250.0 + 0.25 * i) for i in range(5)]
+    with torch.inference_mode():
+        want = [pipe._mono_body(s) for s in smalls]
+        before = _mono_graph_counts()
+        outs = [pipe._batch_disparity(smalls[i % 2], m) for i, m in enumerate(mults)]
+        torch.cuda.synchronize()
+    after = _mono_graph_counts()
+    assert {k: after[k] - before[k] for k in after} == dict(eager=1, captures=1, replays=3)
+    for i, (out, m) in enumerate(zip(outs, mults)):
+        assert _same_bits(out, want[i % 2] * m), i
+
+
+def test_replayed_process_batch_makes_no_host_sync_in_monodepth(cuda):
+    """A munich ``process_batch`` whose monodepth replays: nothing in
+    ``_batch_disparity`` synchronises under ``sync_debug("error")``; the
+    profiler sees three syncs in the call (the resize's two matrices, the
+    upload), none under ``sd.monodepth``."""
+    from portbench.harness import program
+
+    torch.manual_seed(0)
+    pipe = pipeline.SemanticDepthPipeline(
+        config.munich_pipeline_config(), FCN8s(width_mult=0.0625, fc_channels=32),
+        Monodepth(width_mult=0.0625), device=cuda)
+    frames = scene_pool(2, 1024, 2048, seed=3)[0]
+    for _ in range(2):
+        pipe.process_batch(frames)
+    replays = _mono_graph_counts()["replays"]
+    with sync_debug("error", [(pipeline.SemanticDepthPipeline, "_batch_disparity")]):
+        out = pipe.process_batch(frames)
+    assert _mono_graph_counts()["replays"] == replays + 1
+    assert bool(torch.isfinite(out.disparity).all())
+    got = program.sync_sites(lambda: pipe.process_batch(frames))
+    assert len(got["spans"]) == len(got["sites"]) == 3, got
+    assert "sd.monodepth" not in got["spans"], got
+
+
+def test_weights_loaded_in_place_reach_the_next_replay(cuda):
+    pipe = _mono_pipe(cuda, "vgg", 1)
+    small, mult = _smalls(pipe, 1, cuda)[0], pipeline._scalar(250.0)
+    with torch.inference_mode():
+        first = [pipe._batch_disparity(small, mult) for _ in range(3)][-1]
+    torch.manual_seed(5)
+    with torch.device(cuda):
+        other = Monodepth(compute_dtype=torch.bfloat16)
+    pipe.mono.load_state_dict(other.state_dict())
+    before = _mono_graph_counts()
+    with torch.inference_mode():
+        got = pipe._batch_disparity(small, mult)
+        want = pipe._mono_body(small) * mult
+    after = _mono_graph_counts()
+    assert {k: after[k] - before[k] for k in after} == dict(eager=0, captures=0, replays=1)
+    assert _same_bits(got, want) and not torch.equal(got, first)
+
+
+def test_disparity_of_one_frame_is_the_callers_own_tensor(cuda):
+    """``disparity()`` on one frame, replayed: its result lies outside the
+    graph's pool and stays as it was after later replays."""
+    pipe = _mono_pipe(cuda, "vgg", 1)
+    frames = [s[0] for s in _smalls(pipe, 1, cuda)]
+    outs = [pipe.disparity(frames[i % 2], 2048.0) for i in range(4)]
+    kept = [o.clone() for o in outs]
+    pipe.disparity(frames[1], 2048.0)
+    torch.cuda.synchronize()
+    (graph,) = pipe._mono_graphs.graphs.values()
+    pool = graph.outputs.untyped_storage().data_ptr()
+    assert all(o.untyped_storage().data_ptr() != pool for o in outs)
+    assert all(torch.equal(o, k) for o, k in zip(outs, kept))
+    assert _same_bits(outs[0], outs[2]) and _same_bits(outs[1], outs[3])
+
+
 def _exact_knn_frames(c=1000):
     """Frames of one (4, c) batch, c off the kernel's tiles: a road-like
     cloud with nan garbage on its invalid rows, coincident duplicates, fewer
