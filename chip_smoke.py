@@ -246,12 +246,16 @@ def bound_ms(n_bytes, n_ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_counters():
-    """Each kernel wrapper by its row name; each counts its own launches."""
-    from semantic_depth_tpu_torch.ops import exact_knn, knn_grid, mad, radius
+def launch_registry():
+    """The port's kernel launch counts by key (``_cuda.launches``)."""
+    from semantic_depth_tpu_torch.ops import _cuda
 
-    return {"knn_grid": knn_grid.knn_mean_distances_grid, "mad": mad.mad_keep_mask,
-            "radius": radius.radius_counts, "exact_knn": exact_knn.knn_mean_distances_exact}
+    return _cuda.launches
+
+
+def kernel_counters():
+    """K1-K4's keys in the launch registry by row name."""
+    return {name: name for name in ("knn_grid", "mad", "radius", "exact_knn")}
 
 
 # launches per batch of each path's main run
@@ -267,13 +271,13 @@ def exact_config(**kw):
     return dataclasses.replace(base, road=dataclasses.replace(base.road, stat_mode="exact"))
 
 
-def reset_counts(mods):
-    for fn in mods.values():
-        fn.launches = 0
+def reset_counts():
+    launch_registry().clear()
 
 
-def read_counts(mods):
-    return {name: fn.launches for name, fn in mods.items()}
+def read_counts(counters):
+    launches = launch_registry()
+    return {name: launches[key] for name, key in counters.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -745,7 +749,7 @@ def phase_geometry(dev, scenes, counters, stat_mode="grid"):
     )
     cam, _ = pipeline._scaled_camera(cfg, cfg.camera.focal)
     args = [scenes[k] for k in ("small", "road", "fence", "disp")]
-    reset_counts(counters)
+    reset_counts()
     with torch.inference_mode():
         out_gpu = pipe_gpu._batch_geometry(*args, cam)
         torch.cuda.synchronize()
@@ -902,7 +906,7 @@ def phase_end_to_end(dev, counters, frames, n_timed=7, runs=None):
         cfg = pipe.config
         pipe.process_batch(frames)  # warm-up (cuDNN plans, kernel library load)
         torch.cuda.synchronize()
-        reset_counts(counters)
+        reset_counts()
         out = pipe.process_batch(frames)
         torch.cuda.synchronize()
         counts = read_counts(counters)
@@ -960,7 +964,7 @@ def phase_staged(dev, counters, frame):
     log("[phase 6] process_frame_staged, one 1024x2048 frame, bfloat16, stat_mode 'exact'")
     pipe = full_pipeline(dev, "bfloat16", "exact")
     pipe.process_frame_staged(frame)  # its first call per shape warms every stage up
-    reset_counts(counters)
+    reset_counts()
     t0 = time.perf_counter()
     staged, times = pipe.process_frame_staged(frame)
     wall = time.perf_counter() - t0
@@ -1185,7 +1189,7 @@ def phase_native_end_to_end(dev, counters, frames, n_timed=7):
     batch = frames[:4]
     pipe.process_batch(batch)  # warm-up
     torch.cuda.synchronize()
-    reset_counts(counters)
+    reset_counts()
     out = pipe.process_batch(batch)
     torch.cuda.synchronize()
     counts = read_counts(counters)
@@ -1398,7 +1402,7 @@ def phase_trainers(dev, counters, frames):
     with tempfile.TemporaryDirectory() as tmp:
         make_mockup(os.path.join(tmp, "data"), counts=(8, 2, 2), hw=(256, 512), seed=0)
         ds = SegmentationDataset(os.path.join(tmp, "data"), "roborace_mockup", seed=0)
-        reset_counts(counters)
+        reset_counts()
 
         log("[phase 9] FCN-8s/VGG16 full width (fc 4096), 256x512, float32")
         cfg = TrainConfig()  # the reference's: lr 1e-5, batch 1, keep 0.5
@@ -1496,7 +1500,7 @@ def phase_trainers(dev, counters, frames):
 
         log("[phase 9] the trained weights served by build_pipeline")
         pipe = build_pipeline(munich_pipeline_config(), fcn_path, mono_path, device=dev)
-        reset_counts(counters)
+        reset_counts()
         with torch.inference_mode():
             out = pipe.process_batch(frames)
         torch.cuda.synchronize()
@@ -1590,7 +1594,7 @@ def phase_frozen(dev, counters, frames, n_timed=7):
             for f, mult in scalars:
                 live = pipe.process_batch(frames, focal=f, disparity_mult=mult)
                 torch.cuda.synchronize()
-                reset_counts(counters)
+                reset_counts()
                 rw, f2f, found = call(frames, f, mult)
                 torch.cuda.synchronize()
                 launches = read_counts(counters)
@@ -1657,7 +1661,7 @@ def phase_frozen(dev, counters, frames, n_timed=7):
         with torch.backends.cudnn.flags(**deterministic):
             live = pipe.process_frame(frames[0], focal, mult)
             torch.cuda.synchronize()
-            reset_counts(counters)
+            reset_counts()
             got = call(frames[0], focal, mult)
             torch.cuda.synchronize()
             launches = read_counts(counters)
@@ -1691,7 +1695,7 @@ def phase_frozen_fence(dev, counters, frames, tmp):
         call = export.load_pipeline(path)
         live = pipe.process_batch(frames, *scalars)
         torch.cuda.synchronize()
-        reset_counts(counters)
+        reset_counts()
         rw, f2f, found = call(frames, *scalars)
         torch.cuda.synchronize()
         launches = read_counts(counters)
@@ -1943,7 +1947,7 @@ def _multi_device_rank(frames_np, work, n_timed):
     def run(fn):
         """fn's output and launches, counts set to 0 just before."""
         torch.cuda.synchronize()
-        reset_counts(counters)
+        reset_counts()
         out = fn()
         torch.cuda.synchronize()
         return out, read_counts(counters)
@@ -2151,7 +2155,7 @@ def _nccl_rank(frames_np):
     pipe = full_pipeline(dev, "bfloat16", "grid")
     dp = ShardedPipeline(pipe, make_mesh(1, dp=1, tp=1))
     dp.process_batch(frames)
-    reset_counts(counters)
+    reset_counts()
     out = dp.process_batch(frames)
     torch.cuda.synchronize()
     launches = read_counts(counters)
@@ -2358,7 +2362,7 @@ def _training_rank(fcn_batch, stereo, n_steps):
     set_full_fp32()
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     counters = kernel_counters()
-    reset_counts(counters)
+    reset_counts()
     cfg = TrainConfig(batch_size=8)  # lr 1e-5, keep 0.5: the reference's
 
     def fcn(mesh):
@@ -2509,31 +2513,10 @@ K4_LARGE_K = (32, 33, 50, 64, 100)
 K4_PATH_K = 50  # the outlier tool's --nb_neighbors in phase 13
 
 
-class _Count:
-    """A wrapper's second counter (the general K1 kernel's launches, the
-    large-k K4 kernel's) seen as a ``launches`` attribute, so that
-    ``reset_counts`` / ``read_counts`` take it."""
-
-    def __init__(self, fn, attr):
-        self.fn, self.attr = fn, attr
-
-    @property
-    def launches(self):
-        return getattr(self.fn, self.attr)
-
-    @launches.setter
-    def launches(self, n):
-        setattr(self.fn, self.attr, n)
-
-
 def param_counters():
     """``kernel_counters`` and the two kernels phase 13 adds, by row name."""
-    from semantic_depth_tpu_torch.ops import exact_knn, knn_grid
-
-    return dict(kernel_counters(),
-                knn_grid_general=_Count(knn_grid.knn_mean_distances_grid, "general_launches"),
-                exact_knn_large_k=_Count(exact_knn.knn_mean_distances_exact,
-                                         "large_k_launches"))
+    return dict(kernel_counters(), knn_grid_general="knn_grid.general",
+                exact_knn_large_k="exact_knn.large_k")
 
 
 def _same(a, b):
@@ -2561,12 +2544,13 @@ def phase_k1_general(dev, scenes):
     pts = torch.cat([pts_scene, pts_rand]).contiguous()
     valid = torch.cat([valid_scene, valid_rand]).contiguous()
     cases = {}
+    launches = launch_registry()
     for k, window in K1_GENERAL_CASES:
-        before = fn.general_launches
+        before = launches["knn_grid.general"]
         got, want = fn(pts, valid, k, window), plain(pts, valid, k, window)
         torch.cuda.synchronize()
         fin = torch.isfinite(want)
-        check(fn.general_launches == before + 1 and torch.equal(got, want),
+        check(launches["knn_grid.general"] == before + 1 and torch.equal(got, want),
               f"K1 general k={k} window={window}: one general launch, bit-equal to the plain "
               f"version ({int(fin.sum())} finite of {fin.numel()})")
         tx, ty, smem = knn_grid.general_block(k, window)
@@ -2616,10 +2600,10 @@ def phase_k1_general(dev, scenes):
         f"{native['plain_ms']:.3f} ms, bound {t_bound:.4f} ms ({by})")
     del nat, tiny, calls, npts, nvalid
 
-    before, launches = fn.general_launches, fn.launches
+    before = launches.copy()
     got = fn(pts, valid, knn_grid.KERNEL_K, knn_grid.KERNEL_WINDOW)
     torch.cuda.synchronize()
-    check(fn.general_launches == before and fn.launches == launches + 1
+    check(launches - before == {"knn_grid": 1}
           and torch.equal(got, plain(pts, valid, knn_grid.KERNEL_K, knn_grid.KERNEL_WINDOW)),
           "K1 at the road chain's k=10 (5, 21) launches the specialised kernel, bit-equal")
     main = cases[f"k={K1_PATH[0]} window={K1_PATH[1]}"]
@@ -2644,16 +2628,17 @@ def phase_k4_large_k(dev, scenes, scene_cloud):
     xyz, valid = exact_road_clouds(scenes)
     big_xyz, big_valid, _ = scene_cloud
     cases = {}
+    launches = launch_registry()
     for k in K4_LARGE_K:
         for name, (x, v) in (("road (8, 16384)", (xyz, valid)),
                              ("scene (1, 131072)", (big_xyz, big_valid))):
-            before = fn.large_k_launches
+            before = launches["exact_knn.large_k"]
             got, want = fn(x, v, k), plain(x, v, k)
             torch.cuda.synchronize()
             fin = torch.isfinite(want)
             err = (got[fin] - want[fin]).abs().max().item() if fin.any() else 0.0
             large = int(k > exact_knn.REGISTER_MAX_K)
-            check(fn.large_k_launches == before + large and torch.equal(got, want)
+            check(launches["exact_knn.large_k"] == before + large and torch.equal(got, want)
                   and bool(torch.isfinite(got[v]).all()),
                   f"K4 k={k} {name}: {large} large-k launch, bit-equal to the plain version "
                   f"(max abs err {err}, {int(fin.sum())} finite)")
@@ -2727,7 +2712,7 @@ def phase_outlier_large_k(dev, scene_cloud, counters):
             same = a.read() == b.read()
         check(same, f"the CLI at --nb_neighbors {K4_PATH_K} keeps what the plain K4 + K3 "
               f"versions keep on the card ({int(keep.sum())} of {n} points)")
-        reset_counts(counters)
+        reset_counts()
         t0 = time.perf_counter()
         filter_ply(src, os.path.join(tmp, "again.ply"), nb_neighbors=K4_PATH_K)
         inproc_s = time.perf_counter() - t0
@@ -2761,7 +2746,7 @@ def phase_frame_program_7_31(dev, scenes, frames, counters):
     pipes = {d: pipeline.SemanticDepthPipeline(
         cfg, FCN8s(width_mult=0.0625, fc_channels=32), Monodepth(width_mult=0.0625), device=d)
         for d in (dev, "cpu")}
-    reset_counts(counters)
+    reset_counts()
     with torch.inference_mode():
         out_gpu = pipes[dev]._batch_geometry(*args, cam)
         torch.cuda.synchronize()
@@ -2791,7 +2776,7 @@ def phase_frame_program_7_31(dev, scenes, frames, counters):
         pipe.config = c
         pipe.process_batch(frames)  # warm-up
         torch.cuda.synchronize()
-        reset_counts(counters)
+        reset_counts()
         out = pipe.process_batch(frames)
         torch.cuda.synchronize()
         counts = read_counts(counters)
@@ -2942,12 +2927,12 @@ def _mad_rows(rows, n, rng, dev="cuda"):
     return torch.from_numpy(x).to(dev), torch.from_numpy(ok).to(dev)
 
 
-def _launched(fn, wrapper):
-    """fn's output and the launches ``wrapper`` counted in it."""
-    before = wrapper.launches
+def _launched(fn, key):
+    """fn's output and the launches counted under ``key`` in it."""
+    before = launch_registry()[key]
     out = fn()
     torch.cuda.synchronize()
-    return out, wrapper.launches - before
+    return out, launch_registry()[key] - before
 
 
 def phase_any_shape(dev, counters, frames, rows, e2e):
@@ -2969,7 +2954,7 @@ def phase_any_shape(dev, counters, frames, rows, e2e):
         for kind in ("ones", "dyadic"):
             xyz, v, w = _radius_cloud(8, c, rng, kind, dev)
             want = radius.radius_counts_plain(xyz, v, w, 0.5)
-            got, n = _launched(lambda: radius.radius_counts(xyz, v, w, 0.5), radius.radius_counts)
+            got, n = _launched(lambda: radius.radius_counts(xyz, v, w, 0.5), "radius")
             got_noskip = radius.radius_counts(xyz, v, w, 0.5, skip=False)
             check(n == 1 and got.shape == (8, c) and torch.equal(got, want)
                   and torch.equal(got_noskip, want),
@@ -2985,7 +2970,7 @@ def phase_any_shape(dev, counters, frames, rows, e2e):
           f"{err:.3e})")
     xyz, v, w = _radius_cloud(65537, 4, rng, "ones", dev)
     xyz = xyz * 0.05
-    got, n = _launched(lambda: radius.radius_counts(xyz, v, w, 0.5), radius.radius_counts)
+    got, n = _launched(lambda: radius.radius_counts(xyz, v, w, 0.5), "radius")
     check(n == 2 and torch.equal(got, radius.radius_counts_plain(xyz, v, w, 0.5)),
           f"K3 65537 frames of 4: {n} launches (65535 frames each at most), bit-equal")
 
@@ -2996,7 +2981,7 @@ def phase_any_shape(dev, counters, frames, rows, e2e):
         x, ok = _mad_rows(r, n_el, rng, dev)
         thr = mad.threshold_rows((5.0, 1.0), r, dev)
         want = mad.mad_keep_mask_plain(x, ok, thr)
-        got, n = _launched(lambda: mad.mad_keep_mask(x, ok, (5.0, 1.0)), mad.mad_keep_mask)
+        got, n = _launched(lambda: mad.mad_keep_mask(x, ok, (5.0, 1.0)), "mad")
         check(n == 1 and got.shape == (r, n_el) and torch.equal(got, want)
               and torch.equal(mad.mad_keep_mask(x, ok, thr), want),
               f"K2 ({r}, {n_el}): bit-equal, {n} launch ({int(want.sum())} kept)")
@@ -3010,7 +2995,7 @@ def phase_any_shape(dev, counters, frames, rows, e2e):
     x[:, 3] = 30.0
     ok = torch.from_numpy(rng.random((65538, 4)) < 0.9).to(dev)
     want = mad.mad_keep_mask_plain(x, ok, mad.threshold_rows((5.0, 1.0), 65538, dev))
-    got, n = _launched(lambda: mad.mad_keep_mask(x, ok, (5.0, 1.0)), mad.mad_keep_mask)
+    got, n = _launched(lambda: mad.mad_keep_mask(x, ok, (5.0, 1.0)), "mad")
     check(n == 2 and torch.equal(got, want),
           f"K2 65538 rows of 4, threshold pair: {n} launches, bit-equal")
 
@@ -3021,7 +3006,7 @@ def phase_any_shape(dev, counters, frames, rows, e2e):
         cpu_pipe, _, _ = scene_pipeline("cpu", "bfloat16", mode, capacity=1000)
         pipe.process_batch(frames, *scalars)
         torch.cuda.synchronize()
-        reset_counts(counters)
+        reset_counts()
         with pad_copies() as pads:
             out = pipe.process_batch(frames, *scalars)
             torch.cuda.synchronize()
@@ -3058,7 +3043,7 @@ def phase_any_shape(dev, counters, frames, rows, e2e):
                 bound_ms=t_bound, bound_by=by)
         del pipe, cpu_pipe
     pipe, scalars, _ = scene_pipeline(dev, "bfloat16", "grid")
-    reset_counts(counters)
+    reset_counts()
     with pad_copies() as pads:
         pipe.process_batch(frames, *scalars)
         torch.cuda.synchronize()
@@ -3078,9 +3063,9 @@ def phase_any_shape(dev, counters, frames, rows, e2e):
     ok = torch.from_numpy(rng.random((65537, 6, 16)) < 0.9).to(dev)
     chunks = {}
     for k, window in ((knn_grid.KERNEL_K, knn_grid.KERNEL_WINDOW), K1_PATH, (40, (5, 11))):
-        general = grid_fn.general_launches
-        got, n = _launched(lambda: grid_fn(pts, ok, k, window), grid_fn)
-        n_general = grid_fn.general_launches - general
+        general = launch_registry()["knn_grid.general"]
+        got, n = _launched(lambda: grid_fn(pts, ok, k, window), "knn_grid")
+        n_general = launch_registry()["knn_grid.general"] - general
         want = knn_grid.knn_mean_distances_grid_plain(pts, ok, k, window)
         check(n == 2 and n_general == 2 * ((k, window) != K1_ROAD) and _same(got, want),
               f"K1 65537 frames of 6x16, k={k} {window}: {n} launches ({n_general} general), "
@@ -3090,9 +3075,9 @@ def phase_any_shape(dev, counters, frames, rows, e2e):
                            .astype(np.float32)).to(dev)
     v = torch.from_numpy(rng.random((65537, 40)) < 0.8).to(dev)
     for k in (10, 50):
-        large = knn_fn.large_k_launches
-        got, n = _launched(lambda: knn_fn(xyz, v, k), knn_fn)
-        n_large = knn_fn.large_k_launches - large
+        large = launch_registry()["exact_knn.large_k"]
+        got, n = _launched(lambda: knn_fn(xyz, v, k), "exact_knn")
+        n_large = launch_registry()["exact_knn.large_k"] - large
         check(n == 2 and n_large == 2 * (k > exact_knn.REGISTER_MAX_K)
               and torch.equal(got, exact_knn.knn_mean_distances_exact_plain(xyz, v, k)),
               f"K4 65537 clouds of 40 rows, k={k}: {n} launches ({n_large} large-k), bit-equal")
@@ -3215,7 +3200,7 @@ def phase_tf1_weights(dev, counters, frames, smi, n_timed=7):
     pipe = pipeline.SemanticDepthPipeline(config.munich_pipeline_config(), fcn, mono, device=dev)
     pipe.process_batch(frames)
     torch.cuda.synchronize()
-    reset_counts(counters)
+    reset_counts()
     out = pipe.process_batch(frames)
     torch.cuda.synchronize()
     counts = read_counts(counters)
@@ -3263,7 +3248,7 @@ def phase_tf1_weights(dev, counters, frames, smi, n_timed=7):
             config.munich_pipeline_config(compute_dtype="bfloat16"), fcn, mono, device=dev)
         pipe.process_batch(frames)
         torch.cuda.synchronize()
-        reset_counts(counters)
+        reset_counts()
         out_tf = pipe.process_batch(frames)
         torch.cuda.synchronize()
         counts = read_counts(counters)

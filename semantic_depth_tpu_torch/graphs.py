@@ -6,17 +6,19 @@ Each is many small kernels a call whose shapes the batch and the config
 fix (the tail some 360, monodepth's flip pair some 150), so on the card the
 host's launches, one op at a time, are their cost. A captured graph
 launches them all in one call. ``Cache`` keeps one graph a key, least
-recently used first out, and ``Cache.run`` serves a call: the first sight
-of a key runs the body eagerly (the warm-up a capture needs: K1's cached
-offset table, cuDNN's plans, the allocator's blocks), the second captures it
-and replays, every later one replays. ``Captured`` is one graph with its
-static inputs and outputs.
+recently used first out, and ``Cache.run`` alone decides how a call runs:
+eagerly where the call has no key or cannot be captured (``graphable``);
+otherwise the first sight of a key runs the body eagerly (the warm-up a
+capture needs: K1's cached offset table, cuDNN's plans, the allocator's
+blocks), the second captures it and replays, every later one replays.
+``Cache.counts`` counts each. ``Captured`` is one graph with its static
+inputs and outputs.
 
-A replay launches what the capture recorded, so the kernel wrappers'
-counters (``launches``, ``general_launches``, ``large_k_launches``) rise at
-each replay by what the capture counted, and not at the capture, which runs
-nothing. The program's spans inside a graphed body record no CUDA events
-while captured and open none at a replay (``runtime.annotate``).
+A replay launches what the capture recorded, so the kernel launch counts
+(``runtime.launches``) rise at each replay by what the capture counted,
+and not at the capture, which runs nothing. The program's spans inside a
+graphed body record no CUDA events while captured and open none at a
+replay (``runtime.annotate``).
 """
 
 from __future__ import annotations
@@ -25,30 +27,9 @@ from collections import OrderedDict
 
 import torch
 
+from .runtime import launches
+
 SIZE = 4  # graphs a cache keeps, and keys seen once
-
-
-def _counters():
-    """(module, wrapper, counter) of each kernel wrapper's launch counter."""
-    from .ops import exact_knn, knn_grid, mad, radius
-
-    return [(mod, name, counter) for mod, name, counters in (
-        (knn_grid, "knn_mean_distances_grid", ("launches", "general_launches")),
-        (mad, "mad_keep_mask", ("launches",)),
-        (radius, "radius_counts", ("launches",)),
-        (exact_knn, "knn_mean_distances_exact", ("launches", "large_k_launches")),
-    ) for counter in counters]
-
-
-def _add(counters, deltas) -> None:
-    # through the module's name: a probe may have put a recorder in its place
-    for (mod, name, counter), d in zip(counters, deltas):
-        fn = getattr(mod, name)
-        setattr(fn, counter, getattr(fn, counter) + d)
-
-
-def _read(counters):
-    return [getattr(getattr(mod, name), counter) for mod, name, counter in counters]
 
 
 def graphable(tensors) -> bool:
@@ -72,20 +53,19 @@ class Captured:
         device = inputs[0].device
         with torch.inference_mode(False):  # written by calls in and out of inference mode
             self.inputs = [torch.empty_like(t) for t in inputs]
-        self.counters = _counters()
-        before = _read(self.counters)
+        before = launches.copy()
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.device(device), torch.no_grad(), torch.cuda.graph(
                 self.graph, stream=torch.cuda.Stream(device), capture_error_mode="thread_local"):
             self.outputs = fn(*self.inputs, *args)
-        self.launches = [a - b for a, b in zip(_read(self.counters), before)]
-        _add(self.counters, [-d for d in self.launches])  # the capture launched nothing
+        self.counted = launches - before
+        launches.subtract(self.counted)  # the capture launched nothing
 
     def __call__(self, inputs, clone: bool = True):
         for static, t in zip(self.inputs, inputs):
             static.copy_(t)
         self.graph.replay()
-        _add(self.counters, self.launches)
+        launches.update(self.counted)
         own = {id(static): t for static, t in zip(self.inputs, inputs)}
 
         def take(v):
@@ -100,12 +80,14 @@ class Captured:
 
 class Cache:
     """Captured graphs by key and the keys seen once, at most ``size`` of
-    each, least recently used first out."""
+    each, least recently used first out; ``counts``: how its calls ran
+    (``eager``, ``captures``, ``replays``)."""
 
     def __init__(self, size: int = SIZE):
         self.size = size
         self.graphs: OrderedDict = OrderedDict()
         self.seen: OrderedDict = OrderedDict()
+        self.counts = dict(eager=0, captures=0, replays=0)
 
     def get(self, key):
         """The graph of ``key`` (now the most recently used), or None."""
@@ -129,19 +111,20 @@ class Cache:
         if len(self.graphs) > self.size:
             self.graphs.popitem(last=False)
 
-    def run(self, key, counts, fn, inputs, *args, clone: bool = True):
-        """``fn(*inputs, *args)`` at a graphable ``key`` by the rule above:
-        eagerly at the key's first sight, captured at its second, replayed
-        after. ``counts`` (``eager``, ``captures``, ``replays``) counts how;
-        ``clone`` is ``Captured``'s."""
-        graph = self.get(key)
+    def run(self, key, fn, inputs, *args, clone: bool = True):
+        """``fn(*inputs, *args)`` by the rule above. ``key`` is None where
+        the call is never captured, or a function of nothing that gives its
+        key (None again for never), called only where ``inputs`` are
+        graphable; ``clone`` is ``Captured``'s."""
+        key = key() if key is not None and graphable(inputs) else None
+        graph = None if key is None else self.get(key)
         if graph is not None:
-            counts["replays"] += 1
+            self.counts["replays"] += 1
             return graph(inputs, clone)
-        if self.seen_before(key):
+        if key is not None and self.seen_before(key):
             graph = Captured(fn, inputs, *args)
             self.put(key, graph)
-            counts["captures"] += 1
+            self.counts["captures"] += 1
             return graph(inputs, clone)
-        counts["eager"] += 1
+        self.counts["eager"] += 1
         return fn(*inputs, *args)

@@ -15,8 +15,11 @@ Each kernel is a PyTorch dispatcher op (``torch.library.custom_op``) under
 ``NAMESPACE``, defined beside its plain version in ``knn_grid.py``,
 ``mad.py``, ``radius.py`` and ``exact_knn.py``: the CPU implementation is
 the plain version, the CUDA implementation checks its arguments (data
-pointers included), launches and counts the launch, and a fake
-implementation gives the output's shape and dtype. An exported program
+pointers included) and launches chunk by chunk through ``launch_chunks``,
+and a fake implementation gives the output's shape and dtype.
+``launch_chunks`` alone counts the launches, in ``launches`` (the
+process's ``runtime.launches``) under ``knn_grid``, ``knn_grid.general``,
+``mad``, ``radius``, ``exact_knn`` and ``exact_knn.large_k``. An exported program
 (``export.py``) holds the ops as calls, so it launches the same kernels.
 """
 
@@ -33,6 +36,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from ..runtime import launches
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -165,3 +170,12 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def launch_chunks(n: int, limit: int, *keys: str):
+    """``(start, count)`` of each chunk of ``n`` items, at most ``limit`` a
+    launch. Each chunk whose body finished without raising counts once in
+    ``launches`` under each of ``keys``."""
+    for start in range(0, n, limit):
+        yield start, min(limit, n - start)
+        launches.update(keys)

@@ -30,7 +30,7 @@ k - 32 unsorted in shared memory with their largest tracked
 k = 934 the scratch holds them); and a deferred
 query's far walk searches again from its near walk's k-th distance, merging
 the warp's candidates into its k smallest by rank. Their launches count in
-``launches`` and in ``large_k_launches``.
+``_cuda.launches`` under ``exact_knn`` and ``exact_knn.large_k``.
 
 The frames go in chunks of at most ``MAX_FRAMES`` whose padded rows stay
 below 2^31 (the kernels' row ids are 32-bit), one launch each.
@@ -242,11 +242,9 @@ def _(xyz, valid, k, skip):
     limit = _cuda.smem_limit(xyz.device)
     scratch = torch.empty(scratch_words(min(b, chunk), c, k, limit), dtype=torch.float32,
                           device=xyz.device)
-    for f0 in range(0, b, chunk):
-        _launch(xyz, valid, k, skip, scratch, out, limit, (f0, min(chunk, b - f0)))
-        knn_mean_distances_exact.launches += 1
-        if k > REGISTER_MAX_K:
-            knn_mean_distances_exact.large_k_launches += 1
+    keys = ("exact_knn", "exact_knn.large_k") if k > REGISTER_MAX_K else ("exact_knn",)
+    for frames in _cuda.launch_chunks(b, chunk, *keys):
+        _launch(xyz, valid, k, skip, scratch, out, limit, frames)
     return out
 
 
@@ -259,12 +257,7 @@ def knn_mean_distances_exact(
     (G, B); the search, grid (ceil(C / BLOCK_QUERIES), B); the deferred
     queries' kernel; for k > 32 the large-k kernels in place of the last
     two; once per chunk of ``max_frames(C)`` frames, counted in
-    ``launches``, and in ``large_k_launches`` for k > 32) at any B, or
-    raise. ``skip=False`` scans every candidate in row order
-    (validation)."""
+    ``_cuda.launches``) at any B, or raise. ``skip=False`` scans every
+    candidate in row order (validation)."""
     with annotate("sd.k4", xyz.is_cuda):
         return _exact_knn_op(xyz, valid, int(k), bool(skip))
-
-
-knn_mean_distances_exact.launches = 0
-knn_mean_distances_exact.large_k_launches = 0

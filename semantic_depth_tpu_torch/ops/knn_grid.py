@@ -23,9 +23,9 @@ scheme with the block shape from ``general_block``, the visiting order from
 ``general_order`` passed as a table of halo offsets (no row test in its
 loops), and the k smallest in registers up to k = 32; above, the 32
 smallest in registers and the other k - 32 unsorted in shared memory, their
-largest tracked (``csrc/kselect.cuh``). Both count in ``launches``; the general kernel
-also in ``general_launches``. The frames go in chunks of at most
-``MAX_FRAMES``, one launch each.
+largest tracked (``csrc/kselect.cuh``). Both count in ``_cuda.launches``
+under ``knn_grid``; the general kernel also under ``knn_grid.general``.
+The frames go in chunks of at most ``MAX_FRAMES``, one launch each.
 """
 
 from __future__ import annotations
@@ -170,18 +170,16 @@ def _(points, valid, k, window):
         order = _order_table(window, tx, points.device)
     plane = h * w
     p, v, o = points.data_ptr(), valid.data_ptr(), out.data_ptr()
-    for f0 in range(0, b, MAX_FRAMES):  # frame f0 on: float32 points (3 a pixel), bool, float32
-        n = min(MAX_FRAMES, b - f0)
-        at = f0 * plane
+    keys = ("knn_grid", "knn_grid.general") if general else ("knn_grid",)
+    for f0, n in _cuda.launch_chunks(b, MAX_FRAMES, *keys):
+        at = f0 * plane  # frame f0 on: float32 points (3 a pixel), bool, float32
         if general:
             err = lib.sd_knn_grid_general(p + 12 * at, v + at, o + 4 * at, order.data_ptr(),
                                           order.numel(), n, h, w, k, wh, ww, tx, ty, smem, stream)
             _cuda.check(err, "knn_mean_distances_grid (general)")
-            knn_mean_distances_grid.general_launches += 1
         else:
             err = lib.sd_knn_grid(p + 12 * at, v + at, o + 4 * at, n, h, w, k, wh, ww, stream)
             _cuda.check(err, "knn_mean_distances_grid")
-        knn_mean_distances_grid.launches += 1
     return out
 
 
@@ -191,11 +189,7 @@ def knn_mean_distances_grid(
     """points (B, H, W, 3) float32, valid (B, H, W) bool -> (B, H, W)
     float32, through the op ``sd_torch::knn_grid``: CPU tensors take the
     plain version; CUDA tensors launch a kernel (one launch per
-    ``MAX_FRAMES`` frames, counted in ``launches``; the general kernel's
-    also in ``general_launches``) at any B, or raise."""
+    ``MAX_FRAMES`` frames, counted in ``_cuda.launches``) at any B, or
+    raise."""
     with annotate("sd.k1", points.is_cuda):
         return _knn_grid_op(points, valid, k, list(window))
-
-
-knn_mean_distances_grid.launches = 0
-knn_mean_distances_grid.general_launches = 0

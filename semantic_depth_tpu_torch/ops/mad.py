@@ -189,12 +189,11 @@ def _(values, valid, thresholds, t0, t1, split):
     out = torch.empty(values_k.shape, dtype=torch.bool, device=values.device)
     if r * n == 0:
         return out[:, :n]
-    for r0 in range(0, r, MAX_ROWS):
-        rows = slice(r0, r0 + MAX_ROWS)
+    for r0, _ in _cuda.launch_chunks(r, MAX_ROWS, "mad"):
+        rows = slice(r0, r0 + MAX_ROWS)  # past the end: a tensor of thresholds too long fails
         thr = None if thresholds is None else thresholds[rows]
         _kernel(values_k[rows], valid_k[rows], thr, t0, t1,
                 min(max(split - r0, 0), MAX_ROWS), out[rows])
-        mad_keep_mask.launches += 1
     return out if out.shape[1] == n else out[:, :n].contiguous()
 
 
@@ -205,10 +204,7 @@ def mad_keep_mask(values: torch.Tensor, valid: torch.Tensor, thresholds) -> torc
     (the fence pair), or an (R,) float32 tensor; the floats go to the kernel
     by value, with no copy to the card. CPU tensors take the plain version;
     CUDA tensors launch the kernel (one cluster per row; one launch per
-    ``MAX_ROWS`` rows, counted in ``launches``) at any R and N, or raise on a
-    wrong rank or dtype or a threshold pair over odd halves."""
+    ``MAX_ROWS`` rows, counted in ``_cuda.launches``) at any R and N, or
+    raise on a wrong rank or dtype or a threshold pair over odd halves."""
     with annotate("sd.k2", values.is_cuda):
         return _mad_op(values, valid, *_op_args(thresholds, values.shape[0]))
-
-
-mad_keep_mask.launches = 0

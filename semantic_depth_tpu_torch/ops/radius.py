@@ -164,10 +164,9 @@ def _(xyz, valid, weights, radius, skip):
         return out[:, :c]
     scratch = torch.empty(scratch_words(min(b, MAX_FRAMES), cp), dtype=torch.float32,
                           device=xyz.device)
-    for f0 in range(0, b, MAX_FRAMES):
-        f = slice(f0, f0 + MAX_FRAMES)
+    for f0, n in _cuda.launch_chunks(b, MAX_FRAMES, "radius"):
+        f = slice(f0, f0 + n)
         _launch(xyz_k[f], valid_k[f], weights_k[f], radius, skip, scratch, out[f])
-        radius_counts.launches += 1
     return out if cp == c else out[:, :c].contiguous()
 
 
@@ -180,10 +179,7 @@ def radius_counts(
     CPU tensors take the plain version; CUDA tensors launch the kernels (one
     preparation block per frame, then grid (C / BLOCK_QUERIES, B,
     min(MAX_SPLITS, C / TILE)); one launch per ``MAX_FRAMES`` frames, counted
-    in ``launches``) at any B and C, or raise on a wrong rank or dtype.
+    in ``_cuda.launches``) at any B and C, or raise on a wrong rank or dtype.
     ``skip=False`` turns the z-range skip off."""
     with annotate("sd.k3", xyz.is_cuda):
         return _radius_op(xyz, valid, weights, float(radius), bool(skip))
-
-
-radius_counts.launches = 0

@@ -18,7 +18,8 @@ its stages (``sd.call``, ``sd.upload``, ``sd.networks``, ``sd.tail`` and
 their children; the list is in ``runtime``), free while tracing is off.
 On the card the geometry tail replays a CUDA graph a shape, camera and
 config (``_batch_geometry``), and monodepth one a shape and weights
-(``_batch_disparity``; ``graphs``).
+(``_batch_disparity``); each stage gives its key to its own
+``graphs.Cache``, which decides how a call runs and counts it.
 """
 
 from __future__ import annotations
@@ -284,12 +285,11 @@ class SemanticDepthPipeline:
       fcn / mono: the networks (``models.FCN8s`` / ``models.Monodepth``);
         moved to ``device`` and switched to inference mode here.
       device: ``None`` (the card; raises without one) or e.g. ``"cpu"``.
-    """
 
-    # how the geometry tail's calls ran, over every pipeline: eagerly,
-    # captured into a CUDA graph (and replayed once), replayed
-    tail_graphs = dict(eager=0, captures=0, replays=0)
-    mono_graphs = dict(eager=0, captures=0, replays=0)  # monodepth's, likewise
+    ``tail_graphs`` and ``mono_graphs`` are the CUDA graphs of the geometry
+    tail and of monodepth (``graphs.Cache``); their ``counts`` say how this
+    pipeline's calls ran: eagerly, captured (and replayed once), replayed.
+    """
 
     def __init__(self, config: PipelineConfig, fcn: FCN8s, mono: Monodepth, device=None):
         self.config = config
@@ -297,8 +297,8 @@ class SemanticDepthPipeline:
         set_full_fp32()
         self.fcn = fcn.to(self.device).eval()
         self.mono = mono.to(self.device).eval()
-        self._tail_graphs = graphs.Cache()
-        self._mono_graphs = graphs.Cache()
+        self.tail_graphs = graphs.Cache()
+        self.mono_graphs = graphs.Cache()
 
     # --- the three batch stages ------------------------------------------
     def _batch_segment(self, frames: torch.Tensor):
@@ -329,15 +329,10 @@ class SemanticDepthPipeline:
         own tensor. The body runs eagerly where ``small`` is not a plain
         CUDA tensor, under torch.export or torch.compile, and where ``rows``
         is given (``small`` holds this rank's rows, ``parallel.spatial``:
-        the halos pass through ``comm``). ``mono_graphs`` counts how each
-        call ran."""
-        counts = SemanticDepthPipeline.mono_graphs
+        the halos pass through ``comm``)."""
+        key = None if rows is not None else lambda: _mono_key(self.config, self.mono, small)
         with annotate("sd.monodepth", small.is_cuda):
-            if rows is not None or not graphs.graphable((small,)):
-                counts["eager"] += 1
-                return self._mono_body(small, rows) * disparity_mult
-            key = _mono_key(self.config, self.mono, small)
-            disp = self._mono_graphs.run(key, counts, self._mono_body, (small,), clone=False)
+            disp = self.mono_graphs.run(key, self._mono_body, (small,), rows, clone=False)
             return disp * disparity_mult
 
     def _mono_body(self, small: torch.Tensor, rows=None) -> torch.Tensor:
@@ -361,15 +356,10 @@ class SemanticDepthPipeline:
         replays, every later one replays (``graphs``; at most
         ``graphs.SIZE`` graphs a pipeline). The body runs eagerly wherever
         an input is not a plain CUDA tensor, under torch.export or
-        torch.compile, and where a camera field is a tensor on the card.
-        ``tail_graphs`` counts how each call ran."""
-        counts = SemanticDepthPipeline.tail_graphs
+        torch.compile, and where a camera field is a tensor on the card."""
         inputs = (small, road_masks, fence_masks, disps)
-        key = _tail_key(self.config, inputs, cam) if graphs.graphable(inputs) else None
-        if key is None:
-            counts["eager"] += 1
-            return self._tail_body(*inputs, cam)
-        return self._tail_graphs.run(key, counts, self._tail_body, inputs, cam)
+        return self.tail_graphs.run(lambda: _tail_key(self.config, inputs, cam),
+                                    self._tail_body, inputs, cam)
 
     def _tail_body(self, small, road_masks, fence_masks, disps, cam) -> FrameOutputs:
         """Back-projection -> masked clouds -> denoise -> rw endpoints ->

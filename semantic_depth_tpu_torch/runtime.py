@@ -33,10 +33,15 @@ A span opened while its stream is being captured into a CUDA graph records
 no CUDA events, and a graph's replay opens none of the spans inside it: on
 the card the spans below ``sd.tail`` and ``sd.monodepth`` appear on eager
 calls only (``pipeline._batch_geometry``, ``pipeline._batch_disparity``).
+
+``launches`` counts the hand-written kernels' launches by op over the
+process: the kernel layer counts them (``ops._cuda.launch_chunks``), and a
+CUDA graph's replay adds what its capture counted (``graphs.Captured``).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import time
@@ -45,6 +50,7 @@ from typing import Dict
 import torch
 
 CALL = "sd.call"  # the span that starts a new call id
+launches = collections.Counter()  # kernel launches by op, over the process
 
 
 def resolve_device(device=None) -> torch.device:

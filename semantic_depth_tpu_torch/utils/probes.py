@@ -114,8 +114,7 @@ def recording_kernel_calls():
     """Yields ``{"mad": [...], "radius": [...], "exact_knn": [...],
     "knn_grid": [...]}``, which collects the positional arguments (tensors
     cloned) of every call of those wrappers made inside the block. The
-    calls still run; their launches count on the recorder, not on the
-    wrapper."""
+    calls still run."""
     calls = {key: [] for key in _WRAPPERS}
     keys = {name: key for key, (_, name) in _WRAPPERS.items()}
 
@@ -126,10 +125,6 @@ def recording_kernel_calls():
             store.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
             return fn(*args, **kw)
 
-        # the wrapper counts through its module-level name
-        for counter in ("launches", "general_launches", "large_k_launches"):
-            if hasattr(fn, counter):
-                setattr(rec, counter, getattr(fn, counter))
         return rec
 
     with _wrapped(_WRAPPERS.values(), wrap):

@@ -23,6 +23,7 @@ from semantic_depth_tpu.io import artifacts as jart
 from semantic_depth_tpu.models import FCN8s as JaxFCN8s
 from semantic_depth_tpu.models import Monodepth as JaxMonodepth
 from semantic_depth_tpu_torch import config as tconfig
+from semantic_depth_tpu_torch import graphs as tgraphs
 from semantic_depth_tpu_torch import pipeline as tpipeline
 from semantic_depth_tpu_torch.cli import common as tcommon
 from semantic_depth_tpu_torch.cli import semantic_depth as tsd
@@ -146,6 +147,7 @@ def test_save_frame_artifacts_match_jax_on_an_analytic_scene(tmp_path):
     tcfg = tconfig.munich_pipeline_config()
     tpipe = tpipeline.SemanticDepthPipeline.__new__(tpipeline.SemanticDepthPipeline)
     tpipe.config = tcfg
+    tpipe.tail_graphs = tgraphs.Cache()
     tcam, _ = tpipeline._scaled_camera(tcfg, tcfg.camera.focal)
     with torch.inference_mode():
         tout = tpipe._batch_geometry(

@@ -7,6 +7,7 @@ the port's dependencies exist:
     python -m pytest tests/test_torch_cuda.py -q -m gpu --noconftest
 """
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -16,7 +17,7 @@ import torch
 from semantic_depth_tpu_torch import camera, config, pipeline
 from semantic_depth_tpu_torch.models import FCN8s, Monodepth
 from semantic_depth_tpu_torch.io.ply import PlyCloud
-from semantic_depth_tpu_torch.ops import exact_knn, knn_grid, mad, radius
+from semantic_depth_tpu_torch.ops import _cuda, exact_knn, knn_grid, mad, radius
 from semantic_depth_tpu_torch.utils import outlier_removal
 from semantic_depth_tpu_torch.utils.bench_scenes import scene_pool
 from semantic_depth_tpu_torch.utils.probes import recording_kernel_calls, sync_debug
@@ -98,10 +99,9 @@ def test_knn_grid_general_kernel_bit_equal(cuda, k, window):
     even windows); bit-equal to the plain version, nan and +inf patterns
     included."""
     pts, valid = _k1_general_grids(cuda)
-    fn = knn_grid.knn_mean_distances_grid
-    launches, general = fn.launches, fn.general_launches
-    got = fn(pts, valid, k, window)
-    assert (fn.launches, fn.general_launches) == (launches + 1, general + 1)
+    before = _cuda.launches.copy()
+    got = knn_grid.knn_mean_distances_grid(pts, valid, k, window)
+    assert _since(before) == collections.Counter({"knn_grid": 1, "knn_grid.general": 1})
     want = knn_grid.knn_mean_distances_grid_plain(pts, valid, k, window)
     assert torch.equal(got.isnan(), want.isnan())
     assert torch.equal(got.nan_to_num(), want.nan_to_num())
@@ -117,21 +117,20 @@ def test_knn_grid_past_65535_frames_in_chunks(cuda, k, window):
     pts = torch.from_numpy((rng.normal(size=(65537, 8, 16, 3)) * [2.0, 0.3, 5.0])
                            .astype(np.float32)).to(cuda)
     valid = torch.from_numpy(rng.random((65537, 8, 16)) < 0.9).to(cuda)
-    fn = knn_grid.knn_mean_distances_grid
-    launches, general = fn.launches, fn.general_launches
-    got = fn(pts, valid, k, window)
+    before = _cuda.launches.copy()
+    got = knn_grid.knn_mean_distances_grid(pts, valid, k, window)
     specialised = (k, window) == (knn_grid.KERNEL_K, knn_grid.KERNEL_WINDOW)
-    assert (fn.launches, fn.general_launches) == (launches + 2, general + 2 * (not specialised))
+    assert _since(before) == collections.Counter(
+        {"knn_grid": 2, "knn_grid.general": 2 * (not specialised)})
     want = knn_grid.knn_mean_distances_grid_plain(pts, valid, k, window)
     assert torch.equal(got, want) and bool(torch.isfinite(want[-1][valid[-1]]).any())
 
 
 def test_knn_grid_road_chain_setting_keeps_the_specialised_kernel(cuda):
     pts, valid = _k1_general_grids(cuda)
-    fn = knn_grid.knn_mean_distances_grid
-    general = fn.general_launches
-    got = fn(pts, valid, knn_grid.KERNEL_K, knn_grid.KERNEL_WINDOW)
-    assert fn.general_launches == general
+    general = _cuda.launches["knn_grid.general"]
+    got = knn_grid.knn_mean_distances_grid(pts, valid, knn_grid.KERNEL_K, knn_grid.KERNEL_WINDOW)
+    assert _cuda.launches["knn_grid.general"] == general
     assert _equal_nan(got, knn_grid.knn_mean_distances_grid_plain(
         pts, valid, knn_grid.KERNEL_K, knn_grid.KERNEL_WINDOW))
 
@@ -191,9 +190,9 @@ def test_radius_kernel_bit_equal_at_any_capacity(cuda, c, weights):
     skip on and off, one launch a call."""
     xyz, v, w = (t.to(cuda) for t in _radius_cloud(2, c, seed=c, weights=weights))
     want = radius.radius_counts_plain(xyz, v, w, 0.5)
-    before = radius.radius_counts.launches
+    before = _cuda.launches["radius"]
     got = radius.radius_counts(xyz, v, w, 0.5)
-    assert radius.radius_counts.launches == before + 1
+    assert _cuda.launches["radius"] == before + 1
     assert got.shape == (2, c) and got.is_contiguous()
     assert torch.equal(got, want)
     assert torch.equal(radius.radius_counts(xyz, v, w, 0.5, skip=False), want)
@@ -220,9 +219,9 @@ def test_radius_kernel_padded_non_dyadic_and_strided(cuda):
 def test_radius_kernel_past_65535_frames_in_chunks(cuda):
     xyz, v, w = (t.to(cuda) for t in _radius_cloud(65537, 4, seed=7))
     xyz = xyz * 0.05  # the four points of a frame lie within the radius
-    before = radius.radius_counts.launches
+    before = _cuda.launches["radius"]
     got = radius.radius_counts(xyz, v, w, 0.5)
-    assert radius.radius_counts.launches == before + 2
+    assert _cuda.launches["radius"] == before + 2
     assert torch.equal(got, radius.radius_counts_plain(xyz, v, w, 0.5))
 
 
@@ -238,9 +237,9 @@ def test_mad_kernel_bit_equal_at_any_row_length(cuda, n):
     valid = torch.from_numpy(ok).to(cuda)
     thr = mad.threshold_rows((5.0, 1.0), rows, cuda)
     want = mad.mad_keep_mask_plain(vals, valid, thr)
-    before = mad.mad_keep_mask.launches
+    before = _cuda.launches["mad"]
     got = mad.mad_keep_mask(vals, valid, (5.0, 1.0))
-    assert mad.mad_keep_mask.launches == before + 1
+    assert _cuda.launches["mad"] == before + 1
     assert got.shape == (rows, n) and got.is_contiguous()
     assert torch.equal(got, want)
     assert torch.equal(mad.mad_keep_mask(vals, valid, thr), want)
@@ -262,9 +261,9 @@ def test_mad_kernel_misaligned_view_and_65537_rows(cuda):
     vals[:, 3] = 30.0  # one far value a row
     valid = torch.from_numpy(rng.random((rows, 4)) < 0.9).to(cuda)
     want = mad.mad_keep_mask_plain(vals, valid, mad.threshold_rows((5.0, 1.0), rows, cuda))
-    before = mad.mad_keep_mask.launches
+    before = _cuda.launches["mad"]
     got = mad.mad_keep_mask(vals, valid, (5.0, 1.0))
-    assert mad.mad_keep_mask.launches == before + 2
+    assert _cuda.launches["mad"] == before + 2
     assert torch.equal(got, want)
     want = mad.mad_keep_mask_plain(vals[:65537], valid[:65537],
                                    torch.full((65537,), 2.0, device=cuda))
@@ -380,12 +379,11 @@ def test_geometry_tail_makes_no_host_sync_in_mad_and_radius(cuda):
     cam, _ = pipeline._scaled_camera(cfg, cfg.camera.focal)
     pipe = pipeline.SemanticDepthPipeline(
         cfg, FCN8s(width_mult=0.0625, fc_channels=32), Monodepth(width_mult=0.0625), device=cuda)
-    before = [fn.launches for fn in (mad.mad_keep_mask, radius.radius_counts)]
+    before = _cuda.launches.copy()
     with torch.inference_mode(), sync_debug("error"):
         out = pipe._batch_geometry(*args, cam)
     torch.cuda.synchronize()
-    after = [fn.launches for fn in (mad.mad_keep_mask, radius.radius_counts)]
-    assert [a - b_ for a, b_ in zip(after, before)] == [4, 1]
+    assert [_cuda.launches[op] - before[op] for op in ("mad", "radius")] == [4, 1]
     assert bool(torch.isfinite(out.dist_rw).all())
 
 
@@ -410,17 +408,17 @@ def test_host_syncs_count_what_sync_debug_warns(cuda):
     frames = scene_pool(2, 1024, 2048, seed=3)[0]
     pipe.process_batch(frames)
     pipe.process_batch(frames)  # the capture
-    replays = pipeline.SemanticDepthPipeline.tail_graphs["replays"]
+    replays = pipe.tail_graphs.counts["replays"]
     got = program.sync_sites(lambda: pipe.process_batch(frames))
-    assert pipeline.SemanticDepthPipeline.tail_graphs["replays"] == replays + 1
+    assert pipe.tail_graphs.counts["replays"] == replays + 1
     assert len(got["spans"]) == len(got["sites"]) > 0, got
     assert not set(got["spans"]) & program.TAIL, got
     focals = itertools.count(400.0, 0.125)  # none the default 380: each a new key
     bench = types.SimpleNamespace(device=cuda, batches=[frames], batch=len(frames),
                                   call=lambda f: pipe.process_batch(f, focal=next(focals)))
-    before = dict(pipeline.SemanticDepthPipeline.tail_graphs)
+    before = dict(pipe.tail_graphs.counts)
     t = dict(program=program.window(bench, 0.5))
-    after = pipeline.SemanticDepthPipeline.tail_graphs
+    after = pipe.tail_graphs.counts
     assert after["eager"] > before["eager"]
     assert (after["captures"], after["replays"]) == (before["captures"], before["replays"])
     k = t["program"]["kernel_ms"]
@@ -449,8 +447,8 @@ def _bits_equal(a, b) -> bool:
         for x, y in zip(a.leaves(), b.leaves()))
 
 
-def _graph_counts():
-    return dict(pipeline.SemanticDepthPipeline.tail_graphs)
+def _graph_counts(pipe):
+    return dict(pipe.tail_graphs.counts)
 
 
 @pytest.mark.parametrize("b, h, w, changes, launches", [
@@ -478,18 +476,18 @@ def test_replayed_tail_is_bit_equal_to_the_eager_body(cuda, b, h, w, changes, la
     scenes = [_tail_inputs(b, h, w, seed, cuda) for seed in (11, 12)]
     with torch.inference_mode():
         want = [pipe._tail_body(*args, cam) for args in scenes]
-        before = _graph_counts()
+        before = _graph_counts(pipe)
         outs = []
         for i in range(4):
-            before_i = [fn.launches for fn in _COUNTERS]
+            before_i = _launches()
             outs.append(pipe._batch_geometry(*scenes[i % 2], cam))
             torch.cuda.synchronize()
-            assert [fn.launches - n for fn, n in zip(_COUNTERS, before_i)] == launches, i
+            assert [a - n for a, n in zip(_launches(), before_i)] == launches, i
         kept = outs[2].map(torch.clone)
         for _ in range(2):
             pipe._batch_geometry(*scenes[1], cam)
         torch.cuda.synchronize()
-    after = _graph_counts()
+    after = _graph_counts(pipe)
     assert {k: after[k] - before[k] for k in after} == dict(eager=1, captures=1, replays=4)
     for i, out in enumerate(outs):
         assert _bits_equal(out, want[i % 2]), i
@@ -508,7 +506,7 @@ def test_tail_graphs_count_over_a_window_of_calls(cuda):
     n = 7
 
     def calls(focals, config_=None):
-        before = _graph_counts()
+        before = _graph_counts(pipe)
         if config_ is not None:
             pipe.config = config_
         with torch.inference_mode():
@@ -516,7 +514,7 @@ def test_tail_graphs_count_over_a_window_of_calls(cuda):
                 cam, _ = pipeline._scaled_camera(pipe.config, pipeline._scalar(f))
                 pipe._batch_geometry(*args, cam)
         torch.cuda.synchronize()
-        after = _graph_counts()
+        after = _graph_counts(pipe)
         return {k: after[k] - before[k] for k in after}
 
     assert calls([380.0] * n) == dict(eager=1, captures=1, replays=n - 2)
@@ -539,17 +537,17 @@ def test_replayed_tail_makes_no_host_sync(cuda):
     with torch.inference_mode():
         for _ in range(2):
             pipe._batch_geometry(*args, cam)
-        replays = _graph_counts()["replays"]
+        replays = _graph_counts(pipe)["replays"]
         with probes.sync_debug("error", [(pipeline.SemanticDepthPipeline, "_batch_geometry")]):
             out = pipe._batch_geometry(*args, cam)
-    assert _graph_counts()["replays"] == replays + 1
+    assert _graph_counts(pipe)["replays"] == replays + 1
     assert bool(torch.isfinite(out.dist_rw).all())
 
 
 # --- monodepth's CUDA graph (``_batch_disparity``) ---------------------------
 
-def _mono_graph_counts():
-    return dict(pipeline.SemanticDepthPipeline.mono_graphs)
+def _mono_graph_counts(pipe):
+    return dict(pipe.mono_graphs.counts)
 
 
 def _mono_pipe(cuda, net="vgg", b=8):
@@ -602,10 +600,10 @@ def test_replayed_monodepth_is_bit_equal_to_the_eager_body(cuda, net, b):
     mults = [pipeline._scalar(250.0 + 0.25 * i) for i in range(5)]
     with torch.inference_mode():
         want = [pipe._mono_body(s) for s in smalls]
-        before = _mono_graph_counts()
+        before = _mono_graph_counts(pipe)
         outs = [pipe._batch_disparity(smalls[i % 2], m) for i, m in enumerate(mults)]
         torch.cuda.synchronize()
-    after = _mono_graph_counts()
+    after = _mono_graph_counts(pipe)
     assert {k: after[k] - before[k] for k in after} == dict(eager=1, captures=1, replays=3)
     for i, (out, m) in enumerate(zip(outs, mults)):
         assert _same_bits(out, want[i % 2] * m), i
@@ -625,10 +623,10 @@ def test_replayed_process_batch_makes_no_host_sync_in_monodepth(cuda):
     frames = scene_pool(2, 1024, 2048, seed=3)[0]
     for _ in range(2):
         pipe.process_batch(frames)
-    replays = _mono_graph_counts()["replays"]
+    replays = _mono_graph_counts(pipe)["replays"]
     with sync_debug("error", [(pipeline.SemanticDepthPipeline, "_batch_disparity")]):
         out = pipe.process_batch(frames)
-    assert _mono_graph_counts()["replays"] == replays + 1
+    assert _mono_graph_counts(pipe)["replays"] == replays + 1
     assert bool(torch.isfinite(out.disparity).all())
     got = program.sync_sites(lambda: pipe.process_batch(frames))
     assert len(got["spans"]) == len(got["sites"]) == 3, got
@@ -644,11 +642,11 @@ def test_weights_loaded_in_place_reach_the_next_replay(cuda):
     with torch.device(cuda):
         other = Monodepth(compute_dtype=torch.bfloat16)
     pipe.mono.load_state_dict(other.state_dict())
-    before = _mono_graph_counts()
+    before = _mono_graph_counts(pipe)
     with torch.inference_mode():
         got = pipe._batch_disparity(small, mult)
         want = pipe._mono_body(small) * mult
-    after = _mono_graph_counts()
+    after = _mono_graph_counts(pipe)
     assert {k: after[k] - before[k] for k in after} == dict(eager=0, captures=0, replays=1)
     assert _same_bits(got, want) and not torch.equal(got, first)
 
@@ -662,7 +660,7 @@ def test_disparity_of_one_frame_is_the_callers_own_tensor(cuda):
     kept = [o.clone() for o in outs]
     pipe.disparity(frames[1], 2048.0)
     torch.cuda.synchronize()
-    (graph,) = pipe._mono_graphs.graphs.values()
+    (graph,) = pipe.mono_graphs.graphs.values()
     pool = graph.outputs.untyped_storage().data_ptr()
     assert all(o.untyped_storage().data_ptr() != pool for o in outs)
     assert all(torch.equal(o, k) for o, k in zip(outs, kept))
@@ -707,10 +705,10 @@ def test_exact_knn_large_k_bit_equal(cuda, k):
     for xyz, valid in ((torch.from_numpy(a).to(cuda) for a in _exact_knn_frames()),
                        k4.road_clouds(4, 256, 512, 16384, cuda)):
         want = exact_knn.knn_mean_distances_exact_plain(xyz, valid, k)
-        large = fn.large_k_launches
+        large = _cuda.launches["exact_knn.large_k"]
         assert torch.equal(fn(xyz, valid, k), want)
         assert torch.equal(fn(xyz, valid, k, skip=False), want)
-        assert fn.large_k_launches == large + 2
+        assert _cuda.launches["exact_knn.large_k"] == large + 2
 
 
 def _scene_cloud(cuda):
@@ -801,10 +799,10 @@ def test_exact_knn_past_65535_frames_in_chunks(cuda, k):
     xyz = torch.from_numpy((rng.normal(size=(65537, 40, 3)) * [2.0, 0.3, 5.0])
                            .astype(np.float32)).to(cuda)
     valid = torch.from_numpy(rng.random((65537, 40)) < 0.8).to(cuda)
-    fn = exact_knn.knn_mean_distances_exact
-    launches, large = fn.launches, fn.large_k_launches
-    got = fn(xyz, valid, k)
-    assert (fn.launches, fn.large_k_launches) == (launches + 2, large + 2 * (k > 32))
+    before = _cuda.launches.copy()
+    got = exact_knn.knn_mean_distances_exact(xyz, valid, k)
+    assert _since(before) == collections.Counter(
+        {"exact_knn": 2, "exact_knn.large_k": 2 * (k > 32)})
     assert torch.equal(got, exact_knn.knn_mean_distances_exact_plain(xyz, valid, k))
     assert bool(torch.isfinite(got[-1][valid[-1]]).all())
 
@@ -891,15 +889,24 @@ def test_frame_program_on_the_card_matches_the_cpu(cuda):
     torch.manual_seed(0)
     pipe = pipeline.SemanticDepthPipeline(
         tiny, FCN8s(width_mult=0.0625, fc_channels=32), Monodepth(width_mult=0.0625))
-    for fn in _COUNTERS:
-        fn.launches = 0
+    _cuda.launches.clear()
     out = pipe.process_batch(scene_pool(2, 384, 768, seed=5)[0], disparity_mult=100.0)
-    assert [fn.launches for fn in _COUNTERS] == [1, 4, 1, 0]
+    assert _launches() == [1, 4, 1, 0]
     assert out.disparity.device.type == "cuda" and out.disparity.shape == (2, 128, 256)
 
 
-_COUNTERS = (knn_grid.knn_mean_distances_grid, mad.mad_keep_mask, radius.radius_counts,
-             exact_knn.knn_mean_distances_exact)
+_OPS = ("knn_grid", "mad", "radius", "exact_knn")  # K1-K4's keys in ``_cuda.launches``
+
+
+def _launches():
+    """K1-K4's launches so far."""
+    return [_cuda.launches[op] for op in _OPS]
+
+
+def _since(before):
+    """The launches counted since ``before`` (a copy of ``_cuda.launches``),
+    by key."""
+    return _cuda.launches - before
 
 
 def test_exact_mode_on_the_card_matches_the_cpu(cuda):
@@ -932,16 +939,14 @@ def test_exact_mode_on_the_card_matches_the_cpu(cuda):
     pipe = pipeline.SemanticDepthPipeline(
         tiny, FCN8s(width_mult=0.0625, fc_channels=32), Monodepth(width_mult=0.0625))
     frames = scene_pool(2, 384, 768, seed=5)[0]
-    for fn in _COUNTERS:
-        fn.launches = 0
+    _cuda.launches.clear()
     pipe.process_batch(frames, disparity_mult=300.0)
-    assert [fn.launches for fn in _COUNTERS] == [0, 4, 1, 1]
+    assert _launches() == [0, 4, 1, 1]
     fused = pipe.process_frame(frames[0], disparity_mult=300.0)
     pipe.process_frame_staged(frames[0], disparity_mult=300.0)  # the warm-up run
-    for fn in _COUNTERS:
-        fn.launches = 0
+    _cuda.launches.clear()
     staged, times = pipe.process_frame_staged(frames[0], disparity_mult=300.0)
-    assert [fn.launches for fn in _COUNTERS] == [0, 5, 1, 1]
+    assert _launches() == [0, 5, 1, 1]
     assert set(times) == {"read", "semantic", "disparity", "to3D", "road", "rw", "fences", "f2f"}
     for name in ("dist_rw", "dist_f2f", "disparity", "road_plane"):
         a, b = getattr(staged, name), getattr(fused, name)
@@ -954,9 +959,9 @@ def test_filter_ply_on_the_card_writes_what_the_cpu_writes(cuda, tmp_path):
     pts = np.concatenate([rng.normal(size=(3000, 3)) * 0.3, rng.uniform(-40, 40, size=(30, 3))])
     src = PlyCloud(pts, rng.integers(0, 256, size=(3030, 3)), str(tmp_path / "noisy")).save()
     kw = dict(nb_neighbors=10, std_ratio=0.5, nb_points=20, radius=0.3)
-    before = exact_knn.knn_mean_distances_exact.launches
+    before = _cuda.launches["exact_knn"]
     got = outlier_removal.filter_ply(src, str(tmp_path / "card.ply"), **kw)
-    assert exact_knn.knn_mean_distances_exact.launches == before + 1
+    assert _cuda.launches["exact_knn"] == before + 1
     want = outlier_removal.filter_ply(src, str(tmp_path / "cpu.ply"), device="cpu", **kw)
     with open(got, "rb") as a, open(want, "rb") as b:
         assert a.read() == b.read()
@@ -1008,11 +1013,11 @@ def test_single_frame_cli_on_the_card(tmp_path):
 
     frame = tmp_path / "scene.png"
     cv2.imwrite(str(frame), scene_pool(1, 384, 768, seed=5)[0][0])
-    before = [fn.launches for fn in _COUNTERS]
+    before = _launches()
     semantic_depth.main(["--input_frame", str(frame), "--semantic_model", "random",
                          "--monodepth_checkpoint", "random", "--dev_tiny", "--save_data",
                          "--results_dir", str(tmp_path / "results")])
-    assert [a - b for a, b in zip((fn.launches for fn in _COUNTERS), before)] == [1, 4, 1, 0]
+    assert [a - b for a, b in zip(_launches(), before)] == [1, 4, 1, 0]
     out = tmp_path / "results" / "scene"
     for suffix in (".png", "_disp.png", "_raw.ply", "_pointCloud.npz", "_ROAD.ply", "_ALL.ply",
                    "_times.txt", "_distances.txt"):
@@ -1074,8 +1079,6 @@ def test_monodepth_train_step_on_the_card_matches_the_cpu(cuda):
 def test_ops_on_the_card_bit_equal_to_the_direct_launches(cuda):
     """Each dispatcher op (``torch.ops.sd_torch.*``) launches its kernel,
     counts the launch, and gives the bits of the direct launch."""
-    from semantic_depth_tpu_torch.ops import _cuda
-
     rng = np.random.default_rng(11)
     pts = torch.from_numpy((rng.normal(size=(2, 64, 128, 3)) * 3).astype(np.float32)).to(cuda)
     grid_ok = torch.from_numpy(rng.random((2, 64, 128)) < 0.5).to(cuda)
@@ -1084,7 +1087,7 @@ def test_ops_on_the_card_bit_equal_to_the_direct_launches(cuda):
     xyz = torch.from_numpy((rng.normal(size=(2, 2048, 3)) * 2).astype(np.float32)).to(cuda)
     ok = torch.from_numpy(rng.random((2, 2048)) < 0.6).to(cuda)
     w = ok.float()
-    before = [fn.launches for fn in _COUNTERS]
+    before = _launches()
 
     direct = torch.empty((2, 64, 128), device=cuda)
     _cuda.check(_cuda.library().sd_knn_grid(
@@ -1106,7 +1109,7 @@ def test_ops_on_the_card_bit_equal_to_the_direct_launches(cuda):
     exact_knn._launch(xyz, ok, 10, True, torch.empty(exact_knn.scratch_words(2, 2048, 10),
                                                      device=cuda), direct)
     assert torch.equal(torch.ops.sd_torch.exact_knn(xyz, ok, 10, True), direct)
-    assert [fn.launches - b for fn, b in zip(_COUNTERS, before)] == [1, 1, 1, 1]
+    assert [a - b for a, b in zip(_launches(), before)] == [1, 1, 1, 1]
 
 
 def test_frozen_program_on_the_card_equals_the_live_pipeline(cuda, tmp_path):
@@ -1124,10 +1127,10 @@ def test_frozen_program_on_the_card_equals_the_live_pipeline(cuda, tmp_path):
     call = export.load_pipeline(path)
     with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True):
         want = pipe.process_batch(frames)
-        before = [fn.launches for fn in _COUNTERS]
+        before = _launches()
         got = call(frames, cfg.camera.focal, 384.0)
         torch.cuda.synchronize()
-    assert [fn.launches - b for fn, b in zip(_COUNTERS, before)] == [1, 4, 1, 0]
+    assert [a - b for a, b in zip(_launches(), before)] == [1, 4, 1, 0]
     for f in dataclasses.fields(want):
         a, b = getattr(got, f.name), getattr(want, f.name)
         pairs = ([(a.xyz, b.xyz), (a.valid, b.valid)] if f.name == "road_cloud" else [(a, b)])

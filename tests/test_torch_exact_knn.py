@@ -17,8 +17,9 @@ from semantic_depth_tpu.ops import neighbors as jneighbors
 from semantic_depth_tpu.ops import pcl as jpcl
 from semantic_depth_tpu.ops.pallas_exact_knn import knn_mean_distances_exact_pallas
 from semantic_depth_tpu_torch import config as tconfig
+from semantic_depth_tpu_torch import graphs as tgraphs
 from semantic_depth_tpu_torch import pipeline as tpipeline
-from semantic_depth_tpu_torch.ops import exact_knn, neighbors, pcl
+from semantic_depth_tpu_torch.ops import _cuda, exact_knn, neighbors, pcl
 from semantic_depth_tpu_torch.utils.bench_scenes import scene_pool
 
 import oracles as o
@@ -105,9 +106,9 @@ def test_batched_wrapper_on_cpu_is_the_plain_version():
     frames = [_cloud(seed=s) for s in (1, 2)]
     xyz = torch.from_numpy(np.stack([f[0] for f in frames]))
     valid = torch.from_numpy(np.stack([f[1] for f in frames]))
-    before = exact_knn.knn_mean_distances_exact.launches
+    before = _cuda.launches.copy()
     got = exact_knn.knn_mean_distances_exact(xyz, valid, 10)
-    assert exact_knn.knn_mean_distances_exact.launches == before  # no kernel on the CPU
+    assert _cuda.launches == before  # no kernel on the CPU
     for i in range(2):
         np.testing.assert_array_equal(got[i].numpy(), _plain(*frames[i], 10))
 
@@ -177,13 +178,14 @@ def test_exact_mode_geometry_tail_matches_jax():
     tcfg = _exact_cfg(tconfig)
     tpipe = tpipeline.SemanticDepthPipeline.__new__(tpipeline.SemanticDepthPipeline)
     tpipe.config = tcfg
+    tpipe.tail_graphs = tgraphs.Cache()
     tcam, _ = tpipeline._scaled_camera(tcfg, tcfg.camera.focal)
-    before = exact_knn.knn_mean_distances_exact.launches
+    before = _cuda.launches.copy()
     with torch.inference_mode():
         got = tpipe._batch_geometry(
             torch.from_numpy(small), torch.from_numpy(road), torch.from_numpy(fence),
             torch.from_numpy(disp), tcam)
-    assert exact_knn.knn_mean_distances_exact.launches == before
+    assert _cuda.launches == before
 
     assert got.road_cloud.valid.shape == (2, 1024)
     assert bool(got.rw_found.all())

@@ -7,6 +7,7 @@ that the CPU, torch.export and the row-sharded path take the eager body.
 The card's half, the replays against the eager body, is in
 ``test_torch_cuda.py``."""
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -15,7 +16,7 @@ import torch
 
 from semantic_depth_tpu_torch import config, graphs, pipeline, runtime
 from semantic_depth_tpu_torch.models import FCN8s, Monodepth
-from semantic_depth_tpu_torch.ops import exact_knn, knn_grid, mad, radius
+from semantic_depth_tpu_torch.ops import _cuda
 from semantic_depth_tpu_torch.utils.bench_scenes import scene_pool
 
 torch.set_num_threads(2)  # six xdist workers share the machine
@@ -43,12 +44,12 @@ def _cam(cfg, focal):
     return pipeline._scaled_camera(cfg, pipeline._scalar(focal))[0]
 
 
-def _counts():
-    return dict(pipeline.SemanticDepthPipeline.tail_graphs)
+def _counts(pipe):
+    return dict(pipe.tail_graphs.counts)
 
 
-def _delta(before):
-    return {k: v - before[k] for k, v in _counts().items()}
+def _delta(pipe, before):
+    return {k: v - before[k] for k, v in _counts(pipe).items()}
 
 
 def _equal(a: pipeline.FrameOutputs, b: pipeline.FrameOutputs) -> bool:
@@ -116,10 +117,10 @@ def test_cache_forgets_keys_seen_once_past_four():
 
 def test_the_cpu_runs_the_tail_eagerly(pipe, scenes):
     cam = _cam(pipe.config, 380.0)
-    before = _counts()
+    before = _counts(pipe)
     outs = [pipe._batch_geometry(*scenes, cam) for _ in range(3)]
-    assert _delta(before) == dict(eager=3, captures=0, replays=0)
-    assert not pipe._tail_graphs.graphs and not pipe._tail_graphs.seen
+    assert _delta(pipe, before) == dict(eager=3, captures=0, replays=0)
+    assert not pipe.tail_graphs.graphs and not pipe.tail_graphs.seen
     assert _equal(outs[0], outs[2])
 
 
@@ -127,17 +128,17 @@ def test_the_cpu_runs_the_tail_eagerly(pipe, scenes):
 def test_a_key_runs_eager_then_captures_then_replays(pipe, scenes, served, n):
     cam = _cam(pipe.config, 381.0 + n)
     want = pipe._tail_body(*scenes, cam)
-    before = _counts()
+    before = _counts(pipe)
     outs = [pipe._batch_geometry(*scenes, cam) for _ in range(n)]
-    assert _delta(before) == dict(eager=1, captures=1, replays=n - 2)
+    assert _delta(pipe, before) == dict(eager=1, captures=1, replays=n - 2)
     assert all(_equal(o, want) for o in outs)
 
 
 def test_distinct_focals_capture_nothing(pipe, scenes, served):
-    before = _counts()
+    before = _counts(pipe)
     for i in range(6):
         pipe._batch_geometry(*scenes, _cam(pipe.config, 390.0 + i))
-    assert _delta(before) == dict(eager=6, captures=0, replays=0)
+    assert _delta(pipe, before) == dict(eager=6, captures=0, replays=0)
 
 
 def test_a_replaced_config_captures_anew(scenes, served):
@@ -146,32 +147,48 @@ def test_a_replaced_config_captures_anew(scenes, served):
         config.munich_pipeline_config(input_height=H, input_width=W),
         FCN8s(width_mult=0.0625, fc_channels=32), Monodepth(width_mult=0.0625), device="cpu")
     cam = _cam(p.config, 380.0)
-    before = _counts()
+    before = _counts(p)
     for _ in range(3):
         p._batch_geometry(*scenes, cam)
     p.config = dataclasses.replace(p.config, depth=p.config.depth + 0.5)
     for _ in range(3):
         p._batch_geometry(*scenes, cam)
-    assert _delta(before) == dict(eager=2, captures=2, replays=2)
-    assert len(p._tail_graphs.graphs) == 2
+    assert _delta(p, before) == dict(eager=2, captures=2, replays=2)
+    assert len(p.tail_graphs.graphs) == 2
 
 
-def test_the_launch_counters_move_together():
-    """A replay adds what its capture counted, through each wrapper's
-    module-level name, and the capture takes its counts back."""
-    counters = graphs._counters()
-    assert {(m.__name__.rsplit(".", 1)[-1], c) for m, _, c in counters} == {
-        ("knn_grid", "launches"), ("knn_grid", "general_launches"), ("mad", "launches"),
-        ("radius", "launches"), ("exact_knn", "launches"), ("exact_knn", "large_k_launches")}
-    before = graphs._read(counters)
-    deltas = list(range(1, len(counters) + 1))
-    graphs._add(counters, deltas)
-    assert [a - b for a, b in zip(graphs._read(counters), before)] == deltas
-    graphs._add(counters, [-d for d in deltas])
-    assert graphs._read(counters) == before
-    assert knn_grid.knn_mean_distances_grid.launches == before[0]
-    assert (mad.mad_keep_mask.launches, radius.radius_counts.launches,
-            exact_knn.knn_mean_distances_exact.launches) == (before[2], before[3], before[4])
+class _Graph:
+    """``torch.cuda.CUDAGraph`` on the CPU: the capture runs the body, a
+    replay runs nothing."""
+
+    def replay(self):
+        pass
+
+
+def test_the_launch_counters_move_together(monkeypatch):
+    """``graphs.Captured`` around a body that counts launches as the CUDA
+    ops do (``_cuda.launch_chunks``): the capture leaves the registry as it
+    was, and each replay adds what the capture counted."""
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "graph", lambda *a, **kw: contextlib.nullcontext())
+    keys = ("knn_grid", "knn_grid.general", "mad", "radius", "exact_knn", "exact_knn.large_k")
+
+    def body(x):
+        for n, key in enumerate(keys, 1):
+            for _ in _cuda.launch_chunks(n, 1, key):  # n launches under key
+                pass
+        return x + 1
+
+    before = _cuda.launches.copy()
+    graph = graphs.Captured(body, [torch.ones(3)])
+    assert _cuda.launches == before
+    assert graph.counted == {key: n for n, key in enumerate(keys, 1)}
+    for replays in (1, 2):
+        graph([torch.zeros(3)])
+        assert {key: _cuda.launches[key] - before[key] for key in keys} == {
+            key: replays * n for n, key in enumerate(keys, 1)}
 
 
 @pytest.mark.parametrize("value", [1.0, 0.6, 0.25, 2.25, (255.0, 0.0, 255.0),
@@ -213,12 +230,12 @@ def test_nothing_is_graphable_on_the_cpu_or_while_export_traces():
 
 # --- monodepth's graph (``_batch_disparity``) ---------------------------------
 
-def _mono_counts():
-    return dict(pipeline.SemanticDepthPipeline.mono_graphs)
+def _mono_counts(pipe):
+    return dict(pipe.mono_graphs.counts)
 
 
-def _mono_delta(before):
-    return {k: v - before[k] for k, v in _mono_counts().items()}
+def _mono_delta(pipe, before):
+    return {k: v - before[k] for k, v in _mono_counts(pipe).items()}
 
 
 def _small(b=2, h=H, w=W, seed=0):
@@ -295,11 +312,11 @@ def test_monodepth_runs_eager_then_captures_then_replays(served, n):
     small = _small(seed=n)
     mults = [pipeline._scalar(250.0 + 0.5 * i) for i in range(n)]
     want = [pipe._mono_body(small) * m for m in mults]
-    before = _mono_counts()
+    before = _mono_counts(pipe)
     outs = [pipe._batch_disparity(small, m) for m in mults]
-    assert _mono_delta(before) == dict(eager=1, captures=1, replays=n - 2)
+    assert _mono_delta(pipe, before) == dict(eager=1, captures=1, replays=n - 2)
     assert all(_bits(o, w_) for o, w_ in zip(outs, want))
-    assert len(pipe._mono_graphs.graphs) == 1
+    assert len(pipe.mono_graphs.graphs) == 1
 
 
 def test_weights_loaded_in_place_are_read_by_the_next_replay(served):
@@ -309,9 +326,9 @@ def test_weights_loaded_in_place_are_read_by_the_next_replay(served):
         pipe._batch_disparity(small, mult)
     torch.manual_seed(2)
     pipe.mono.load_state_dict(Monodepth(width_mult=0.0625).state_dict())
-    before = _mono_counts()
+    before = _mono_counts(pipe)
     got = pipe._batch_disparity(small, mult)
-    assert _mono_delta(before) == dict(eager=0, captures=0, replays=1)
+    assert _mono_delta(pipe, before) == dict(eager=0, captures=0, replays=1)
     assert _bits(got, pipe._mono_body(small) * mult)
 
 
@@ -328,10 +345,10 @@ def test_the_row_sharded_path_runs_monodepth_eagerly(served):
     pipe = _mono_pipe()
     pipe.mono = _RowsMono()
     small, mult, rows = _small(), pipeline._scalar(250.0), object()
-    before = _mono_counts()
+    before = _mono_counts(pipe)
     outs = [pipe._batch_disparity(small, mult, rows) for _ in range(3)]
-    assert _mono_delta(before) == dict(eager=3, captures=0, replays=0)
-    assert pipe.mono.rows is rows and not pipe._mono_graphs.seen
+    assert _mono_delta(pipe, before) == dict(eager=3, captures=0, replays=0)
+    assert pipe.mono.rows is rows and not pipe.mono_graphs.seen
     assert all(_bits(o, outs[0]) for o in outs)
 
 
@@ -347,10 +364,10 @@ def test_torch_export_traces_monodepth_eagerly(monkeypatch):
             return pipe._batch_disparity(small, mult)
 
     small, mult = _small(), torch.tensor(250.0)
-    before = _mono_counts()
+    before = _mono_counts(pipe)
     prog = torch.export.export(M(), (small, mult), strict=False)
-    assert _mono_delta(before)["eager"] >= 1
-    assert _mono_delta(before)["captures"] == 0 and not pipe._mono_graphs.seen
+    assert _mono_delta(pipe, before)["eager"] >= 1
+    assert _mono_delta(pipe, before)["captures"] == 0 and not pipe.mono_graphs.seen
     with torch.inference_mode():
         assert _bits(prog.module()(small, mult), pipe._mono_body(small) * mult)
 

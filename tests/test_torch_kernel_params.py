@@ -20,8 +20,9 @@ from semantic_depth_tpu.ops import pallas_knn
 from semantic_depth_tpu.ops import pcl as jpcl
 from semantic_depth_tpu.ops.pallas_knn import _knn_tile_body, knn_mean_distances_grid_pallas
 from semantic_depth_tpu_torch import config as tconfig
+from semantic_depth_tpu_torch import graphs as tgraphs
 from semantic_depth_tpu_torch import pipeline as tpipeline
-from semantic_depth_tpu_torch.ops import exact_knn, knn_grid
+from semantic_depth_tpu_torch.ops import _cuda, exact_knn, knn_grid
 from semantic_depth_tpu_torch.utils.bench_scenes import scene_pool
 
 torch.set_num_threads(2)  # six xdist workers share the machine
@@ -135,7 +136,9 @@ def _geometry(config_mod, pipeline_mod, scenes, convert, **kw):
     cfg = dataclasses.replace(base, rw_slab_halfwidth=0.5,
                               road=dataclasses.replace(base.road, **road_kw), **top_kw)
     pipe = pipeline_mod.SemanticDepthPipeline.__new__(pipeline_mod.SemanticDepthPipeline)
-    pipe.config = cfg  # the geometry tail reads only the config
+    pipe.config = cfg  # the geometry tail reads only the config (and the port's, its graphs)
+    if pipeline_mod is tpipeline:
+        pipe.tail_graphs = tgraphs.Cache()
     focal = cfg.camera.focal if convert is torch.from_numpy else jnp.float32(cfg.camera.focal)
     cam, _ = pipeline_mod._scaled_camera(cfg, focal)
     return pipe._batch_geometry(*[convert(a) for a in scenes], cam)
@@ -154,10 +157,10 @@ def test_geometry_tail_matches_jax_under_other_road_configs(kw):
     scenes = (imgs.astype(np.float32), labels == 7, labels == 13,
               (disp_norm * np.float32(2048.0 * w / 512.0)).astype(np.float32))
     want = _geometry(jconfig, jpipeline, scenes, jnp.asarray, **kw)
-    before = knn_grid.knn_mean_distances_grid.launches
+    before = _cuda.launches.copy()
     with torch.inference_mode():
         got = _geometry(tconfig, tpipeline, scenes, torch.from_numpy, **kw)
-    assert knn_grid.knn_mean_distances_grid.launches == before  # the CPU takes the plain path
+    assert _cuda.launches == before  # the CPU takes the plain path
     np.testing.assert_array_equal(got.rw_found.numpy(), np.asarray(want.rw_found))
     assert bool(got.rw_found.any())
     for f in ("dist_rw", "dist_f2f"):

@@ -12,7 +12,7 @@ from semantic_depth_tpu.ops import pcl as jpcl
 from semantic_depth_tpu.ops.pallas_exact_knn import radius_counts_pallas
 from semantic_depth_tpu.ops.pallas_knn import knn_mean_distances_grid_pallas
 from semantic_depth_tpu.ops.pallas_mad import mad_keep_mask_pallas
-from semantic_depth_tpu_torch.ops import knn_grid, mad, radius
+from semantic_depth_tpu_torch.ops import _cuda, knn_grid, mad, radius
 
 torch.set_num_threads(2)  # six xdist workers share the machine
 
@@ -22,6 +22,20 @@ def _grid(seed, h=64, w=128, b=None, frac=0.7):
     shape = (h, w) if b is None else (b, h, w)
     pts = (rng.normal(size=shape + (3,)) * [2.0, 0.3, 5.0]).astype(np.float32)
     return pts, rng.random(shape) < frac
+
+
+def test_launch_chunks_count_each_launch_that_finished():
+    """The CUDA ops' chunk loop: ``(start, count)`` chunks of at most
+    ``limit``, each counted under every key once its body has run, and a
+    body that raises counted not at all."""
+    before = _cuda.launches.copy()
+    assert list(_cuda.launch_chunks(7, 3, "mad", "radius")) == [(0, 3), (3, 3), (6, 1)]
+    assert list(_cuda.launch_chunks(0, 3, "mad")) == []
+    with pytest.raises(RuntimeError):
+        for start, _ in _cuda.launch_chunks(7, 3, "mad"):
+            if start == 3:
+                raise RuntimeError("refused launch")
+    assert _cuda.launches - before == {"mad": 4, "radius": 3}
 
 
 # --- K1: windowed kNN --------------------------------------------------------
@@ -55,9 +69,9 @@ def test_knn_grid_sparse_window_is_inf():
 
 def test_knn_grid_batched_wrapper_on_cpu_is_the_plain_version():
     pts, valid = _grid(1, h=32, w=64, b=2)
-    before = knn_grid.knn_mean_distances_grid.launches
+    before = _cuda.launches.copy()
     got = knn_grid.knn_mean_distances_grid(torch.from_numpy(pts), torch.from_numpy(valid), 10)
-    assert knn_grid.knn_mean_distances_grid.launches == before  # no kernel on the CPU
+    assert _cuda.launches == before  # no kernel on the CPU
     for i in range(2):
         want = np.asarray(jneighbors.knn_mean_distances_grid(
             jnp.asarray(pts[i]), jnp.asarray(valid[i]), 10))
@@ -108,9 +122,9 @@ def test_mad_rows_in_one_call_match_row_by_row():
     vals = torch.from_numpy(np.stack([r[0] for r in rows]))
     valid = torch.from_numpy(np.stack([r[1] for r in rows]))
     thr = torch.tensor([r[2] for r in rows], dtype=torch.float32)
-    before = mad.mad_keep_mask.launches
+    before = _cuda.launches.copy()
     got = mad.mad_keep_mask(vals, valid, thr)
-    assert mad.mad_keep_mask.launches == before
+    assert _cuda.launches == before
     for i in range(len(rows)):
         np.testing.assert_array_equal(
             got[i].numpy(), mad.mad_keep_mask_plain(vals[i:i + 1], valid[i:i + 1], thr[i:i + 1])[0])
@@ -186,9 +200,9 @@ def test_radius_batched_wrapper_on_cpu_is_the_plain_version():
     xyz = torch.from_numpy(np.stack([c[0] for c in clouds]))
     valid = torch.from_numpy(np.stack([c[1] for c in clouds]))
     w = torch.from_numpy(np.stack([c[2] for c in clouds]))
-    before = radius.radius_counts.launches
+    before = _cuda.launches.copy()
     got = radius.radius_counts(xyz, valid, w, 0.5)
-    assert radius.radius_counts.launches == before
+    assert _cuda.launches == before
     for i in range(2):
         want = np.asarray(radius_counts_pallas(
             jnp.asarray(xyz[i].numpy()), jnp.asarray(valid[i].numpy()), 0.5, tq=128, cb=128,

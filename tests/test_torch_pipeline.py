@@ -15,6 +15,7 @@ from semantic_depth_tpu import pipeline as jpipeline
 from semantic_depth_tpu.models import FCN8s as JaxFCN8s
 from semantic_depth_tpu.models import Monodepth as JaxMonodepth
 from semantic_depth_tpu_torch import config as tconfig
+from semantic_depth_tpu_torch import graphs as tgraphs
 from semantic_depth_tpu_torch import pipeline as tpipeline
 from semantic_depth_tpu_torch.models import FCN8s, Monodepth
 from semantic_depth_tpu_torch.models.from_flax import load_flax
@@ -126,6 +127,7 @@ def test_geometry_tail_on_analytic_scene_matches_jax():
     tcfg = tconfig.munich_pipeline_config()
     tpipe = tpipeline.SemanticDepthPipeline.__new__(tpipeline.SemanticDepthPipeline)
     tpipe.config = tcfg
+    tpipe.tail_graphs = tgraphs.Cache()
     tcam, _ = tpipeline._scaled_camera(tcfg, tcfg.camera.focal)
     with torch.inference_mode():
         got = tpipe._batch_geometry(

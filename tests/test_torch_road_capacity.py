@@ -14,6 +14,7 @@ import torch
 from semantic_depth_tpu import config as jconfig
 from semantic_depth_tpu import pipeline as jpipeline
 from semantic_depth_tpu_torch import config as tconfig
+from semantic_depth_tpu_torch import graphs as tgraphs
 from semantic_depth_tpu_torch import pipeline as tpipeline
 from semantic_depth_tpu_torch.utils.bench_scenes import scene_pool
 
@@ -52,6 +53,7 @@ def test_road_tail_at_capacity_1000_matches_jax(stat_mode):
     tcfg = _cfg(tconfig, stat_mode)
     tpipe = tpipeline.SemanticDepthPipeline.__new__(tpipeline.SemanticDepthPipeline)
     tpipe.config = tcfg
+    tpipe.tail_graphs = tgraphs.Cache()
     tcam, _ = tpipeline._scaled_camera(tcfg, tcfg.camera.focal)
     with torch.inference_mode():
         got = tpipe._batch_geometry(*map(torch.from_numpy, (small, road, fence, disp)), tcam)

@@ -396,7 +396,7 @@ def serve_rw_mae(fcn_path, mono_path, native=False, n_frames=32, batch=8, device
 
     from semantic_depth_tpu_torch.cli.common import build_pipeline
     from semantic_depth_tpu_torch.config import munich_pipeline_config
-    from semantic_depth_tpu_torch.ops import exact_knn, knn_grid, mad, radius
+    from semantic_depth_tpu_torch.ops import _cuda
     from semantic_depth_tpu_torch.utils.bench_scenes import scene_pool
 
     size = dict(input_height=FULL_HW[0], input_width=FULL_HW[1]) if native else {}
@@ -405,10 +405,7 @@ def serve_rw_mae(fcn_path, mono_path, native=False, n_frames=32, batch=8, device
         batch = 4
     pipe = build_pipeline(cfg, fcn_path, mono_path, native_s2d=native, device=device)
     imgs, _, _, rw_true, _ = scene_pool(n_frames, *FULL_HW, seed=0)
-    wrappers = (knn_grid.knn_mean_distances_grid, mad.mad_keep_mask, radius.radius_counts,
-                exact_knn.knn_mean_distances_exact)
-    for fn in wrappers:
-        fn.launches = 0
+    _cuda.launches.clear()
     widths = []
     with torch.inference_mode():
         for i in range(0, n_frames, batch):
@@ -417,7 +414,7 @@ def serve_rw_mae(fcn_path, mono_path, native=False, n_frames=32, batch=8, device
     widths = np.concatenate(widths)
     finite = np.isfinite(widths)
     mae = float(np.abs(widths[finite] - rw_true[finite]).mean()) if finite.any() else None
-    launches = {fn.__module__.rsplit(".", 1)[1]: fn.launches for fn in wrappers}
+    launches = {op: _cuda.launches[op] for op in ("knn_grid", "mad", "radius", "exact_knn")}
     return mae, float(finite.mean()), launches
 
 
