@@ -8,12 +8,16 @@ mapping, replicated border) and the device evaluates
     out[b, i, j, c] = sum_{k, l} W_rows[i, k] * img[b, k, l, c] * W_cols[j, l]
 
 as two float32 ``torch.matmul`` calls (full float32: ``runtime.set_full_fp32``).
-``resize_np`` and ``resize_clip_u8_np`` are the host numpy twins that the
-training data loaders use.
+The matrices stay on the device, one tensor a (source, target, method,
+device), so a call after a key's first sight copies nothing from the host
+and does not wait on the device; ``matrices`` counts the tensors ``built``
+and ``reused`` over the process. ``resize_np`` and ``resize_clip_u8_np``
+are the host numpy twins that the training data loaders use.
 """
 
 from __future__ import annotations
 
+import collections
 from functools import lru_cache
 
 import numpy as np
@@ -61,6 +65,34 @@ def _interp_matrix(src: int, dst: int, method: str) -> np.ndarray:
     return mat
 
 
+_MATRICES: collections.OrderedDict = collections.OrderedDict()  # LRU, as _interp_matrix
+matrices = collections.Counter()  # device matrices "built" / "reused", over the process
+
+
+def _device_matrix(src: int, dst: int, method: str, device: torch.device) -> torch.Tensor:
+    """``_interp_matrix(src, dst, method)`` as a float32 tensor on ``device``,
+    made once per key, by ``runtime.device_constant``'s rules: made outside
+    inference mode so it serves in and out of it, and fresh while
+    torch.export or torch.compile traces, so a traced program holds no
+    cached one (and the counts do not move). The last 64 keys are kept; a
+    CUDA graph that captured an older one must hold its own reference."""
+    if torch.compiler.is_compiling():
+        return torch.from_numpy(_interp_matrix(src, dst, method)).to(device)
+    key = (src, dst, method, device)
+    mat = _MATRICES.get(key)
+    if mat is not None:
+        _MATRICES.move_to_end(key)
+        matrices["reused"] += 1
+        return mat
+    with torch.inference_mode(False):
+        mat = torch.from_numpy(_interp_matrix(src, dst, method)).to(device)
+    _MATRICES[key] = mat
+    if len(_MATRICES) > 64:
+        _MATRICES.popitem(last=False)
+    matrices["built"] += 1
+    return mat
+
+
 def resize(img: torch.Tensor, out_hw, method: str = "cubic") -> torch.Tensor:
     """Resize (..., H, W, C) images to ``out_hw`` = (H', W') in float32.
 
@@ -73,8 +105,8 @@ def resize(img: torch.Tensor, out_hw, method: str = "cubic") -> torch.Tensor:
         # Scale 1 under the half-pixel mapping lands exactly on source
         # pixels: the matrices are identity, so skip the products.
         return x
-    wr = torch.from_numpy(_interp_matrix(src_h, out_h, method)).to(x.device)
-    wc = torch.from_numpy(_interp_matrix(src_w, out_w, method)).to(x.device)
+    wr = _device_matrix(src_h, out_h, method, x.device)
+    wc = _device_matrix(src_w, out_w, method, x.device)
     x = x.reshape((-1, src_h, src_w * c))
     # rows: (out_h, src_h) @ (src_h, src_w * C)
     x = torch.matmul(wr, x)

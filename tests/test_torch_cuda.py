@@ -17,7 +17,7 @@ import torch
 from semantic_depth_tpu_torch import camera, config, pipeline
 from semantic_depth_tpu_torch.models import FCN8s, Monodepth
 from semantic_depth_tpu_torch.io.ply import PlyCloud
-from semantic_depth_tpu_torch.ops import _cuda, exact_knn, knn_grid, mad, radius
+from semantic_depth_tpu_torch.ops import _cuda, exact_knn, knn_grid, mad, radius, resize
 from semantic_depth_tpu_torch.utils import outlier_removal
 from semantic_depth_tpu_torch.utils.bench_scenes import scene_pool
 from semantic_depth_tpu_torch.utils.probes import recording_kernel_calls, sync_debug
@@ -387,6 +387,36 @@ def test_geometry_tail_makes_no_host_sync_in_mad_and_radius(cuda):
     assert bool(torch.isfinite(out.dist_rw).all())
 
 
+def test_batch_segment_makes_no_host_sync_after_a_warm_call(cuda):
+    """Resize and FCN-8s on frames already on the card run under
+    torch.cuda.set_sync_debug_mode('error') once the resize's matrices are
+    on the card: a host-to-device copy of a matrix there would raise."""
+    pipe = pipeline.SemanticDepthPipeline(
+        config.munich_pipeline_config(), FCN8s(width_mult=0.0625, fc_channels=32),
+        Monodepth(width_mult=0.0625), device=cuda)
+    frames = torch.from_numpy(scene_pool(2, 1024, 2048, seed=3)[0]).to(cuda)
+    with torch.inference_mode():
+        want = pipe._batch_segment(frames)
+        before = resize.matrices.copy()
+        with sync_debug("error", targets=[(pipeline.SemanticDepthPipeline, "_batch_segment")]):
+            got = pipe._batch_segment(frames)
+    torch.cuda.synchronize()
+    assert resize.matrices - before == {"reused": 2}
+    assert torch.equal(got[0], want[0])
+
+
+def test_resize_clip_u8_with_kept_matrices_equals_fresh_uploads(cuda, monkeypatch):
+    """The card's kept matrices give the bits that matrices copied from the
+    host on every call give."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.integers(0, 256, size=(8, 1024, 2048, 3), dtype=np.uint8)).to(cuda)
+    kept = [resize.resize_clip_u8(x.float(), (256, 512)) for _ in range(2)]
+    monkeypatch.setattr(resize, "_device_matrix", lambda src, dst, method, device: (
+        torch.from_numpy(resize._interp_matrix(src, dst, method)).to(device)))
+    fresh = resize.resize_clip_u8(x.float(), (256, 512))
+    assert torch.equal(kept[0], fresh) and torch.equal(kept[1], fresh)
+
+
 def test_host_syncs_count_what_sync_debug_warns(cuda):
     """One munich process_batch under ``sync_debug("warn")`` on
     ``process_batch``, the profiler and program tracing, its tail a replay:
@@ -413,6 +443,7 @@ def test_host_syncs_count_what_sync_debug_warns(cuda):
     assert pipe.tail_graphs.counts["replays"] == replays + 1
     assert len(got["spans"]) == len(got["sites"]) > 0, got
     assert not set(got["spans"]) & program.TAIL, got
+    assert got["spans"] == ["sd.upload"], got  # the resize's matrices stay on the card
     focals = itertools.count(400.0, 0.125)  # none the default 380: each a new key
     bench = types.SimpleNamespace(device=cuda, batches=[frames], batch=len(frames),
                                   call=lambda f: pipe.process_batch(f, focal=next(focals)))
@@ -612,8 +643,8 @@ def test_replayed_monodepth_is_bit_equal_to_the_eager_body(cuda, net, b):
 def test_replayed_process_batch_makes_no_host_sync_in_monodepth(cuda):
     """A munich ``process_batch`` whose monodepth replays: nothing in
     ``_batch_disparity`` synchronises under ``sync_debug("error")``; the
-    profiler sees three syncs in the call (the resize's two matrices, the
-    upload), none under ``sd.monodepth``."""
+    profiler sees one sync in the call (the upload: the resize's matrices
+    stay on the card), none under ``sd.monodepth``."""
     from portbench.harness import program
 
     torch.manual_seed(0)
@@ -629,7 +660,7 @@ def test_replayed_process_batch_makes_no_host_sync_in_monodepth(cuda):
     assert _mono_graph_counts(pipe)["replays"] == replays + 1
     assert bool(torch.isfinite(out.disparity).all())
     got = program.sync_sites(lambda: pipe.process_batch(frames))
-    assert len(got["spans"]) == len(got["sites"]) == 3, got
+    assert len(got["spans"]) == len(got["sites"]) == 1, got
     assert "sd.monodepth" not in got["spans"], got
 
 

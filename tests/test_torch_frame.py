@@ -85,6 +85,86 @@ def test_resize_identity_shortcut_and_batch():
         )
 
 
+def _matrix_key(src, dst, method="cubic"):
+    return (src, dst, method, torch.device("cpu"))
+
+
+def test_resize_matrices_are_built_once_a_key_and_reused():
+    """Sizes no other test resizes, so the first call builds both keys."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.integers(0, 256, size=(2, 37, 71, 3)).astype(np.float32))
+    before = tresize.matrices.copy()
+    first = tresize.resize(x, (19, 29))
+    assert tresize.matrices - before == {"built": 2}
+    rows, cols = (tresize._MATRICES[_matrix_key(37, 19)], tresize._MATRICES[_matrix_key(71, 29)])
+    for mat, (src, dst) in ((rows, (37, 19)), (cols, (71, 29))):
+        assert mat.dtype == torch.float32 and not mat.is_inference()
+        assert torch.equal(mat, torch.from_numpy(tresize._interp_matrix(src, dst, "cubic")))
+        assert tresize._device_matrix(src, dst, "cubic", torch.device("cpu")) is mat
+    before = tresize.matrices.copy()
+    again = tresize.resize(x, (19, 29))
+    assert tresize.matrices - before == {"reused": 2}
+    assert tresize._MATRICES[_matrix_key(37, 19)] is rows
+    assert tresize._MATRICES[_matrix_key(71, 29)] is cols
+    assert torch.equal(again, first)
+    # a new target width takes a key for the columns; a new source height for the rows
+    before = tresize.matrices.copy()
+    tresize.resize(x, (19, 30))
+    assert tresize.matrices - before == {"built": 1, "reused": 1}
+    before = tresize.matrices.copy()
+    tresize.resize(x[:, :36], (19, 29))
+    assert tresize.matrices - before == {"built": 1, "reused": 1}
+    assert _matrix_key(36, 19) in tresize._MATRICES and _matrix_key(71, 30) in tresize._MATRICES
+
+
+def test_resize_matrix_while_tracing_is_fresh_and_uncounted(monkeypatch):
+    key = _matrix_key(41, 17)
+    kept = tresize._device_matrix(41, 17, "cubic", torch.device("cpu"))
+    n, before = len(tresize._MATRICES), tresize.matrices.copy()
+    monkeypatch.setattr(torch.compiler, "is_compiling", lambda: True)
+    fresh = tresize._device_matrix(41, 17, "cubic", torch.device("cpu"))
+    fresh_new = tresize._device_matrix(43, 17, "cubic", torch.device("cpu"))
+    monkeypatch.undo()
+    assert fresh is not kept and torch.equal(fresh, kept)
+    assert torch.equal(fresh_new, torch.from_numpy(tresize._interp_matrix(43, 17, "cubic")))
+    assert len(tresize._MATRICES) == n and tresize._MATRICES[key] is kept
+    assert tresize.matrices == before and _matrix_key(43, 17) not in tresize._MATRICES
+
+
+def test_resize_while_export_traces_keeps_no_matrix():
+    class M(torch.nn.Module):
+        def forward(self, x):
+            return tresize.resize_clip_u8(x, (13, 22))
+
+    x = torch.from_numpy(np.random.default_rng(6).uniform(0, 255, (1, 31, 53, 3)).astype(np.float32))
+    n, before = len(tresize._MATRICES), tresize.matrices.copy()
+    prog = torch.export.export(M(), (x,), strict=False)
+    assert len(tresize._MATRICES) == n and tresize.matrices == before
+    assert _matrix_key(31, 13) not in tresize._MATRICES
+    assert torch.equal(prog.module()(x), tresize.resize_clip_u8(x, (13, 22)))
+
+
+def test_resize_matrix_made_in_inference_mode_serves_outside_it():
+    x = torch.from_numpy(np.random.default_rng(7).uniform(0, 255, (1, 29, 47, 3)).astype(np.float32))
+    with torch.inference_mode():
+        inside = tresize.resize(x, (11, 23))
+    assert not tresize._MATRICES[_matrix_key(29, 11)].is_inference()
+    leaf = x.clone().requires_grad_(True)
+    before = tresize.matrices.copy()
+    out = tresize.resize(leaf, (11, 23))
+    assert tresize.matrices - before == {"reused": 2}
+    out.sum().backward()
+    assert leaf.grad is not None and torch.equal(out.detach(), inside)
+
+
+@pytest.mark.parametrize("method", ["cubic", "linear"])
+def test_resize_identity_shortcut_builds_no_matrix(method):
+    x = torch.zeros((1, 33, 67, 3), dtype=torch.uint8)
+    n, before = len(tresize._MATRICES), tresize.matrices.copy()
+    assert torch.equal(tresize.resize(x, (33, 67), method), x.float())
+    assert len(tresize._MATRICES) == n and tresize.matrices == before
+
+
 def test_segmentation_overlay_matches_jax():
     rng = np.random.default_rng(4)
     frame = rng.uniform(0, 255, size=(32, 64, 3)).astype(np.float32)
