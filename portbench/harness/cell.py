@@ -6,7 +6,12 @@ A cell names a configuration (``configs[].file``) and a traffic mix
 ``metrics/<name before the first dot>.py``; each network's reference is
 the module of the encoder its configuration names (``reference/nets.py``).
 Adding a cell, a configuration, a mix, a metric or an encoder adds files
-and entries; nothing here names one.
+and entries; nothing here names one. A new network brings its reference
+module (``reference/<kind>_<encoder>.py``, ``layers`` or ``params``), a
+configuration file whose slot names the encoder and, where the port builds
+it with another class, that class under ``port``
+(``harness/setup.port_class``), its cells' limits and any metrics of its
+own; no file that is there is edited.
 """
 
 from __future__ import annotations

@@ -17,6 +17,12 @@ from . import geometry, nets
 from .precision import FLOAT32, Precision, full_float32
 
 
+class NoRoad(RuntimeError):
+    """The reference finds no road to measure on these frames: the seed's
+    frames and weights leave no denoised road point, or none in the width's
+    slab."""
+
+
 def camera(cfg: dict, focal: float):
     return geometry.scaled_camera(cfg["camera"], focal, cfg["input_height"], cfg["input_width"])
 
@@ -45,17 +51,18 @@ def networks(frames: torch.Tensor, cfg: dict, mult: float, weights: Optional[Dic
     thr = cfg["segmenter"]["threshold"]
     scale = disparity_scale(cfg, mult).to(frames.device)
     fcn, mono = references(cfg)
+    fcn_arg = nets.forward_arg(fcn, net["fcn8s"])
+    mono_arg = nets.forward_arg(mono, net["monodepth"])
     parts = []
     with full_float32():
         for f0 in range(0, frames.shape[0], chunk):
             small = geometry.resize_u8(frames[f0:f0 + chunk], (h, w), prec)
             if scenes is None:
-                logits = fcn.logits(weights["fcn"], small, net["fcn8s"]["input_s2d"], prec)
+                logits = fcn.logits(weights["fcn"], small, fcn_arg, prec)
                 norm = small / small.new_tensor(255.0)
-                s2d = net["monodepth"]["input_s2d"]
-                disp = mono.disparity(weights["mono"], norm, s2d, prec)
+                disp = mono.disparity(weights["mono"], norm, mono_arg, prec)
                 if net["monodepth"]["flip_average"]:
-                    flipped = mono.disparity(weights["mono"], norm.flip(2), s2d, prec)
+                    flipped = mono.disparity(weights["mono"], norm.flip(2), mono_arg, prec)
                     disp = nets.flip_blend(disp, flipped)
             else:
                 labels = scenes["labels"][f0:f0 + chunk]
@@ -104,5 +111,5 @@ def calibrated_depth(frames: torch.Tensor, cfg: dict, focal: float, mult: float,
     out = program(frames, cfg, focal, mult, cfg["depth"], weights, scenes)
     z = out["packed_xyz"][..., 2][out["keep"]]
     if z.numel() == 0:
-        raise RuntimeError("the calibration batch leaves no denoised road point")
+        raise NoRoad("the calibration batch leaves no denoised road point")
     return -float(z.median()) + cfg["rw_depth_offset"]

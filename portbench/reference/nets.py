@@ -30,14 +30,37 @@ reference, for the kinds ``fcn`` and ``mono``. ``vgg16`` (fcn) and ``vgg``
 (mono) are the networks above; any other encoder is the module
 ``<kind>_<encoder>.py`` beside this one (``mono_resnet50.py``), which:
 
-* exports ``layers(input_s2d, width)`` (fcn: ``layers(input_s2d, width,
-  num_classes, fc_channels)``), the ``Layer`` list whose names are the
-  port's parameter names, and the float32 forward pass, mono
-  ``disparity(weights, images01, input_s2d, prec)`` -> (B, H, W), fcn
-  ``logits(weights, images, input_s2d, prec)`` -> (B, H, W, C);
-* runs every convolution through ``_Net.conv`` / ``conv_t``, so that the
-  control's float8 operands and ``REORDERED`` reach it as they reach vgg;
+* exports its parameters in one of two ways. ``layers(input_s2d, width)``
+  (fcn: ``layers(input_s2d, width, num_classes, fc_channels)``) gives the
+  ``Layer`` list of a network of convolutions, each with a ``.weight`` and
+  a zero ``.bias``. ``params(net)``, where ``net`` is the configuration's
+  ``networks.<slot>`` dict, gives the ``Param`` list of any network: each
+  key of the weights with its shape and init law (``lecun``, ``normal``,
+  ``zeros``, ``ones``), so Linear layers, LayerNorm gains, tokens, position
+  tables and bias-less convolutions (a weight with no ``.bias`` entry) can
+  be listed. Either way the names are the port's parameter names. Where a
+  module exports both, ``params`` is used;
+* exports the float32 forward pass, mono ``disparity(weights, images01,
+  arg, prec)`` -> (B, H, W), fcn ``logits(weights, images, arg, prec)`` ->
+  (B, H, W, C), where ``arg`` is ``input_s2d`` for a ``layers`` module and
+  the ``networks.<slot>`` dict for a ``params`` one (``forward_arg``). An
+  fcn network's last layer is ``upscore8``, whose bias carries the
+  calibration's road logit bias on every pixel phase;
+* runs every convolution through ``_Net.conv`` / ``conv_t`` and every
+  matrix product of the network (a Linear layer, attention's two products)
+  through ``_Net.linear`` / ``matmul``, so that the control's float8
+  operands and ``REORDERED`` reach it as they reach vgg;
 * computes in float32, and imports nothing of the program or of JAX.
+
+A new network therefore comes in as new files and entries, and edits
+none: its reference module here; a configuration under
+``portbench/configs/`` whose slot names the encoder and, where the port
+builds the network with another class than ``FCN8s`` / ``Monodepth``, that
+class under ``"port": {"class": "semantic_depth_tpu_torch.<module>:<Class>",
+"kwargs": {...}}`` (``harness/setup.py`` builds it on the meta device with
+``compute_dtype`` and the kwargs, and loads the weights strictly); its
+cells' limits under ``portbench/limits/``; and per-layer metrics, where it
+needs its own, under ``portbench/metrics/``.
 """
 
 from __future__ import annotations
@@ -47,7 +70,7 @@ import importlib
 import re
 import types
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -74,6 +97,32 @@ class Layer:
     def weight_shape(self):
         io = (self.cin, self.cout) if self.transposed else (self.cout, self.cin)
         return io + (self.k, self.k)
+
+
+LAWS = ("lecun", "normal", "zeros", "ones")
+
+
+@dataclasses.dataclass(frozen=True)
+class Param:
+    """One parameter of a ``params`` module: its key in the weights (the
+    port's ``state_dict`` key, ``.weight`` or ``.bias`` included), its shape
+    and its init law. ``lecun``: a unit normal clamped at +-2, scaled to std
+    1 / sqrt(``fan_in``); ``normal``: the same clamped normal scaled to std
+    ``std``; ``zeros``; ``ones`` (``harness/weights.make_params``)."""
+    name: str
+    shape: Tuple[int, ...]
+    law: str
+    fan_in: int = 0
+    std: float = 0.0
+
+    def __post_init__(self):
+        object.__setattr__(self, "shape", tuple(int(n) for n in self.shape))
+        if self.law not in LAWS:
+            raise ValueError(f"{self.name}: init law {self.law!r} is none of {LAWS}")
+        if self.law == "lecun" and self.fan_in < 1:
+            raise ValueError(f"{self.name}: the lecun law needs its fan-in")
+        if self.law == "normal" and not self.std > 0:
+            raise ValueError(f"{self.name}: the normal law needs its std")
 
 
 def _scaled(c: int, width: float) -> int:
@@ -141,16 +190,30 @@ class _Net:
     def __init__(self, weights: Dict[str, torch.Tensor], prec: Precision):
         self.w, self.prec = weights, prec
 
-    def conv(self, name, x, stride=1, pad=None):
+    def _bias(self, name):
+        """``name``'s bias in float32, or None where it has none."""
+        b = self.w.get(f"{name}.bias")
+        return None if b is None else b.float()
+
+    def conv(self, name, x, stride=1, pad=None, groups=1):
         w = self.w[f"{name}.weight"]
         pad = (w.shape[-1] - 1) // 2 if pad is None else pad
-        return F.conv2d(net_input(x, self.prec), net_input(w, self.prec),
-                        self.w[f"{name}.bias"].float(), stride, pad)
+        return F.conv2d(net_input(x, self.prec), net_input(w, self.prec), self._bias(name),
+                        stride, pad, 1, groups)
 
     def conv_t(self, name, x, stride, pad):
         w = self.w[f"{name}.weight"]
         return F.conv_transpose2d(net_input(x, self.prec), net_input(w, self.prec),
-                                  self.w[f"{name}.bias"].float(), stride, pad)
+                                  self._bias(name), stride, pad)
+
+    def linear(self, name, x):
+        """``x @ weight.T + bias`` of the (out, in) weight ``name``."""
+        return F.linear(net_input(x, self.prec), net_input(self.w[f"{name}.weight"], self.prec),
+                        self._bias(name))
+
+    def matmul(self, a, b):
+        """A product of two activations (attention's scores and mixing)."""
+        return torch.matmul(net_input(a, self.prec), net_input(b, self.prec))
 
 
 def fcn_logits(weights, images: torch.Tensor, input_s2d: bool = False,
@@ -247,10 +310,24 @@ def encoders(kind: str) -> List[str]:
     return sorted(files | {e for k, e in _BUILT_IN if k == kind})
 
 
+def lists_params(ref) -> bool:
+    """Whether the reference ``ref`` (from ``network``) lists its ``params``
+    rather than its ``layers``."""
+    return callable(getattr(ref, "params", None))
+
+
+def forward_arg(ref, slot: Dict):
+    """What ``ref``'s forward pass takes after the images: the
+    configuration's ``networks.<slot>`` dict for a ``params`` module, its
+    ``input_s2d`` for a ``layers`` one."""
+    return slot if lists_params(ref) else slot["input_s2d"]
+
+
 def network(kind: str, encoder: str):
-    """The reference of the ``kind`` network with ``encoder``: ``layers`` and
-    the forward pass ``FORWARD[kind]``. Raises ``LookupError`` naming the
-    file looked for where there is none."""
+    """The reference of the ``kind`` network with ``encoder``: ``layers`` or
+    ``params``, and the forward pass ``FORWARD[kind]``. Raises
+    ``LookupError`` naming the file looked for where there is none, and
+    naming what a module there lacks."""
     if (kind, encoder) in _BUILT_IN:
         return _BUILT_IN[kind, encoder]
     name = f"{kind}_{encoder}"
@@ -264,7 +341,9 @@ def network(kind: str, encoder: str):
             raise
         raise LookupError(f"no reference for the {kind} encoder {encoder!r}: "
                           f"{shown} is not there") from None
-    missing = [a for a in ("layers", FORWARD[kind]) if not callable(getattr(module, a, None))]
+    missing = [a for a in (FORWARD[kind],) if not callable(getattr(module, a, None))]
+    if not (lists_params(module) or callable(getattr(module, "layers", None))):
+        missing.insert(0, "layers or params")
     if missing:
         raise LookupError(f"{shown} does not define {', '.join(missing)}")
     return module

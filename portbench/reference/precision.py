@@ -5,7 +5,9 @@ matrix products (TF32 off). The control computes the same program one step
 below what each part of the configuration states:
 
 * the networks, stated in bfloat16: float8 (e4m3, one scale a tensor) for
-  every convolution's input and weight, accumulated in float32;
+  every convolution's and every matrix product's input and weight (a
+  Linear layer's, attention's two products: ``nets._Net``), accumulated
+  in float32;
 * the geometry, stated in float32: TF32 for every matrix or inner product
   (both operands rounded to 10 mantissa bits, accumulated in float32).
 
@@ -79,7 +81,8 @@ def dot(a: torch.Tensor, b: torch.Tensor, prec: Precision) -> torch.Tensor:
 
 
 def net_input(x: torch.Tensor, prec: Precision) -> torch.Tensor:
-    """A convolution's operand as ``prec`` computes it (float32 storage)."""
+    """An operand of a network's convolution or matrix product as ``prec``
+    computes it (float32 storage)."""
     x = x.float()
     return to_float8(x) if prec.networks == "float8" else x
 

@@ -138,12 +138,16 @@ def test_an_encoder_without_a_module_fails_at_load(tmp_path, kind):
 
 
 def test_the_cells_load_through_the_lookup():
+    """Each cell's references are the networks of the encoders its
+    configuration names."""
     assert "vgg16" in nets.encoders("fcn") and "vgg" in nets.encoders("mono")
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
     for w in spec["workloads"]:
         cell = cell_lib.load(w["name"])
+        net = cell.config["networks"]
         fcn, mono = ref_frame.references(cell.config)
-        assert fcn.logits is nets.fcn_logits and mono.disparity is nets.mono_disparity
+        assert fcn.logits is nets.network("fcn", net["fcn8s"]["encoder"]).logits
+        assert mono.disparity is nets.network("mono", net["monodepth"]["encoder"]).disparity
 
 
 def _port_module(kind, encoder, s2d):
@@ -155,15 +159,44 @@ def _port_module(kind, encoder, s2d):
         return Monodepth(encoder=encoder, input_s2d=s2d)
 
 
+def _slots_naming(kind, encoder):
+    """The ``networks.<slot>`` of every configuration that names ``encoder``."""
+    slot = "fcn8s" if kind == "fcn" else "monodepth"
+    files = sorted((BENCH / "configs").glob("*.json"))
+    slots = [json.loads(f.read_text())["networks"][slot] for f in files]
+    return [s for s in slots if s["encoder"] == encoder]
+
+
+def assert_params_are_the_ports(ref, slot, kind="mono"):
+    """A ``params`` reference's keys and shapes at a configuration's slot
+    are those of the port network that the harness builds for it."""
+    if "port" in slot:
+        with torch.device("meta"):
+            port = setup.port_class(slot["port"]["class"])(**slot["port"].get("kwargs", {}))
+    else:
+        port = _port_module(kind, slot["encoder"], slot["input_s2d"])
+    want = {k: tuple(v.shape) for k, v in port.state_dict().items()}
+    assert {p.name: p.shape for p in ref.params(slot)} == want
+
+
 @pytest.mark.parametrize("s2d", [False, True], ids=["plain", "s2d"])
 @pytest.mark.parametrize("kind,encoder",
                          [(k, e) for k in sorted(nets.FORWARD) for e in nets.encoders(k)])
 def test_weight_keys_are_the_ports(kind, encoder, s2d):
     """Every encoder the lookup resolves: the reference's keys and shapes
-    are the port's ``state_dict``'s, so ``load_state_dict`` maps them."""
+    are the port's ``state_dict``'s, so ``load_state_dict`` maps them. A
+    ``params`` module is held to the port at each configuration that names
+    it (its slot gives the layout, whichever ``s2d`` is)."""
+    ref = nets.network(kind, encoder)
+    if nets.lists_params(ref):
+        slots = _slots_naming(kind, encoder)
+        assert slots, f"no configuration names the {kind} encoder {encoder}"
+        for slot in slots:
+            assert_params_are_the_ports(ref, slot, kind)
+        return
     extra = (3, nets.FCN_FC) if kind == "fcn" else ()
     shapes = {}
-    for layer in nets.network(kind, encoder).layers(s2d, 1.0, *extra):
+    for layer in ref.layers(s2d, 1.0, *extra):
         shapes[f"{layer.name}.weight"] = tuple(layer.weight_shape)
         shapes[f"{layer.name}.bias"] = (layer.cout,)
     port = {k: tuple(v.shape) for k, v in _port_module(kind, encoder, s2d).state_dict().items()}
