@@ -23,7 +23,7 @@ import torch
 from ..config import PipelineConfig
 from ..io import artifacts as art
 from ..io.ply import PlyCloud
-from ..models import FCN8s, Monodepth
+from ..models import DPT, FCN8s, Monodepth
 from ..models import weights as weights_lib
 from ..models.from_flax import load_flax
 from ..models.tf_checkpoint import latest_checkpoint
@@ -342,6 +342,14 @@ def load_mono_params(model: Monodepth, path: str) -> Monodepth:
     return weights_lib.as_torch_params(model, converted)
 
 
+def load_dpt_params(model: DPT, path: str) -> DPT:
+    """DPT weights from a ``torch.save``d state dict of the model's own keys
+    (loaded strictly); 'random' keeps the seeded init."""
+    if path != "random":
+        model.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
+    return model
+
+
 class FrozenPipeline:
     """Serves frames from a program of ``cli.export_pipeline`` (``export.py``):
     the reference's ``--use_frozen optimized_graph.pb`` path
@@ -436,10 +444,22 @@ def require_dense_outputs(out, flag_context: str):
     return out
 
 
+ENCODERS = ("vgg", "resnet50", "dpt_large")
+
+# DPT-Large's disparity, scale * inv + shift, for weights drawn by its init
+# law: the pair of the benchmark's munich-dpt-large-bf16 configuration
+# (the published KITTI pair leaves seeded outputs nearly constant)
+DPT_SEEDED = dict(scale=0.0009195, shift=0.05114)
+# the smoke and test mode's DPT (--dev_tiny): every width cut, 4 layers
+DPT_TINY = dict(width=64, layers=4, heads=2, mlp=256, pos_grid=3, hooks=(0, 1, 2, 3),
+                neck=(16, 32, 64, 64), features=16, head_hidden=8)
+
+
 def apply_encoder_override(cfg: PipelineConfig, encoder: str) -> PipelineConfig:
     """Apply a --monodepth_encoder value (vgg|resnet50, reference flag
-    semantic_depth.py:721-722) to the config."""
-    if encoder not in ("vgg", "resnet50"):
+    semantic_depth.py:721-722; dpt_large, DPT-Large as the depth network)
+    to the config."""
+    if encoder not in ENCODERS:
         raise ValueError(f"unknown monodepth encoder: {encoder!r}")
     if encoder == cfg.monodepth.encoder:
         return cfg
@@ -499,7 +519,13 @@ def build_pipeline(
     native_s2d=True builds the input_s2d full-resolution variants and turns
     off the monodepth flip-average pass, as every native surface of the JAX
     package does. 'random' weights are torch's init under seeds 0 (FCN-8s)
-    and 1 (monodepth). ``device`` None is the card."""
+    and 1 (monodepth). ``device`` None is the card. DPT-Large
+    (``dpt_large``) takes 'random' or a ``torch.save``d state dict of
+    ``models.DPT``'s own keys, and has no native form."""
+    dpt = cfg.monodepth.encoder == "dpt_large"
+    if dpt and native_s2d:
+        raise ValueError("--native_s2d: DPT-Large has no input_s2d form (attention runs on "
+                         "the full-resolution patch grid); run it without --native_s2d")
     if native_s2d:
         cfg = dataclasses.replace(
             cfg, monodepth=dataclasses.replace(cfg.monodepth, flip_average=False))
@@ -521,10 +547,16 @@ def build_pipeline(
         fcn = FCN8s(num_classes=cfg.segmenter.num_classes, input_s2d=native_s2d,
                     compute_dtype=dtype, **fcn_kw)
         torch.manual_seed(1)
-        mono = Monodepth(encoder=cfg.monodepth.encoder, input_s2d=native_s2d,
-                         compute_dtype=dtype, **mono_kw)
+        if dpt:
+            mono = DPT(compute_dtype=dtype, **DPT_SEEDED, **(DPT_TINY if tiny else {}))
+        else:
+            mono = Monodepth(encoder=cfg.monodepth.encoder, input_s2d=native_s2d,
+                             compute_dtype=dtype, **mono_kw)
     load_fcn_params(fcn, semantic_model)
-    load_mono_params(mono, monodepth_checkpoint)
+    if dpt:
+        load_dpt_params(mono, monodepth_checkpoint)
+    else:
+        load_mono_params(mono, monodepth_checkpoint)
     return SemanticDepthPipeline(cfg, fcn, mono, device=dev)
 
 

@@ -59,7 +59,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="monodepth weights: .msgpack, a dir or checkpoint prefix beside "
                         "monodepth.msgpack, or 'random'")
     p.add_argument("--monodepth_encoder", type=str, default="vgg",
-                   help="type of encoder, vgg or resnet50")
+                   help="type of encoder, vgg, resnet50 or dpt_large")
     p.add_argument("--input_height", type=int, default=256)
     p.add_argument("--input_width", type=int, default=512)
     p.add_argument("--approach", type=str, default="both")

@@ -51,7 +51,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--semantic_model", default="models/sem_seg/30-Epochs-cityscapes")
     p.add_argument("--monodepth_checkpoint",
                    default="models/monodepth/model_cityscapes/model_cityscapes")
-    p.add_argument("--monodepth_encoder", type=str, default="vgg")
+    p.add_argument("--monodepth_encoder", type=str, default="vgg",
+                   help="type of encoder, vgg, resnet50 or dpt_large")
     p.add_argument("--input_height", type=int, default=256)
     p.add_argument("--input_width", type=int, default=512)
     p.add_argument("--approach", type=str, default="rw")

@@ -130,7 +130,7 @@ class MonodepthConfig:
     (semantic_depth.py:656-678).
     """
 
-    encoder: str = "vgg"  # 'vgg' | 'resnet50'
+    encoder: str = "vgg"  # 'vgg' | 'resnet50' | 'dpt_large' (DPT-Large, ``models.DPT``)
     # NOTE: the network input size comes from PipelineConfig.input_height/
     # input_width — it is NOT configured here (the reference's
     # monodepth_parameters height/width fields map to those).

@@ -26,12 +26,15 @@ def _truncated_normal_(t: torch.Tensor, std: float, generator: Optional[torch.Ge
         return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
-def lecun_normal_(conv: nn.Conv2d, generator: Optional[torch.Generator] = None) -> None:
-    """flax ``lecun_normal()`` kernel and zero bias for a ``Conv2d`` (OIHW:
-    fan-in = I * H * W, as flax's HWIO kernel counts it)."""
-    fan_in = conv.weight[0].numel()
-    _truncated_normal_(conv.weight, (1.0 / fan_in) ** 0.5 / _TRUNC_STD, generator)
-    nn.init.zeros_(conv.bias)
+def lecun_normal_(layer: nn.Module, generator: Optional[torch.Generator] = None,
+                  fan_in: Optional[int] = None) -> None:
+    """flax ``lecun_normal()`` kernel and zero bias (where it has one) for a
+    ``Conv2d`` or ``Linear`` (OIHW or (out, in): fan-in = I * H * W, as
+    flax's HWIO kernel counts it), or with the ``fan_in`` given."""
+    fan_in = layer.weight[0].numel() if fan_in is None else fan_in
+    _truncated_normal_(layer.weight, (1.0 / fan_in) ** 0.5 / _TRUNC_STD, generator)
+    if layer.bias is not None:
+        nn.init.zeros_(layer.bias)
 
 
 def truncated_normal_(layer: nn.Module, std: float,

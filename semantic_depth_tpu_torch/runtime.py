@@ -22,7 +22,8 @@ events, read by ``stats()``. The program opens these spans:
       sd.networks  _batch_segment + _batch_disparity; device
         sd.resize, sd.fcn
         sd.monodepth  the flip batch and its blend; device
-          sd.mono.encoder, sd.mono.decoder  Monodepth.forward's halves; device
+          sd.mono.encoder, sd.mono.decoder  Monodepth.forward's or DPT.forward's
+                      halves; device
       sd.tail      _batch_geometry; device
         sd.road    the road chain and its width (sd.k1 or sd.k4, sd.k2 x2, sd.k3)
         sd.fence   the fence chains and f2f (sd.k2 x2)
@@ -34,9 +35,11 @@ no CUDA events, and a graph's replay opens none of the spans inside it: on
 the card the spans below ``sd.tail`` and ``sd.monodepth`` appear on eager
 calls only (``pipeline._batch_geometry``, ``pipeline._batch_disparity``).
 
-``launches`` counts the hand-written kernels' launches by op over the
-process: the kernel layer counts them (``ops._cuda.launch_chunks``), and a
-CUDA graph's replay adds what its capture counted (``graphs.Captured``).
+``launches`` counts, by op over the process, the hand-written kernels'
+launches (the kernel layer counts them, ``ops._cuda.launch_chunks``) and
+DPT's attention calls, ``sdpa`` (``F.scaled_dot_product_attention``, one a
+block; ``models.dpt``). A CUDA graph's replay adds what its capture
+counted (``graphs.Captured``).
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ from typing import Dict
 import torch
 
 CALL = "sd.call"  # the span that starts a new call id
-launches = collections.Counter()  # kernel launches by op, over the process
+launches = collections.Counter()  # kernel launches and attention calls by op, over the process
 
 
 def resolve_device(device=None) -> torch.device:

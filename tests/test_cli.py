@@ -623,3 +623,44 @@ def test_prefetch_decoded_preserves_order_and_none_frames():
     # degenerate depths/few items still drain completely
     assert list(c.prefetch_decoded(["x"], load, depth=8)) == [("x", "X")]
     assert list(c.prefetch_decoded([], load)) == []
+
+
+def test_port_cli_dpt_large_encoder(tmp_path, frame_dir, monkeypatch):
+    """The PyTorch port's --monodepth_encoder dpt_large: accepted, builds
+    ``models.DPT`` (the --dev_tiny sizes, the seeded pair of scale and
+    shift), runs the sequence CLI on the CPU, and loads a ``torch.save``d
+    state dict of its own keys; --native_s2d is refused with its message;
+    an unknown encoder still raises."""
+    import torch
+
+    from semantic_depth_tpu_torch.cli import common
+    from semantic_depth_tpu_torch.cli import sequence as seq
+    from semantic_depth_tpu_torch.config import munich_pipeline_config
+    from semantic_depth_tpu_torch.models import DPT
+
+    cfg = common.apply_encoder_override(
+        munich_pipeline_config(input_height=128, input_width=256), "dpt_large")
+    assert cfg.monodepth.encoder == "dpt_large"
+    pipe = common.build_pipeline(cfg, "random", "random", tiny=True, device="cpu")
+    assert isinstance(pipe.mono, DPT) and pipe.config.monodepth.flip_average
+    assert len(pipe.mono.blocks) == common.DPT_TINY["layers"]
+    assert (pipe.mono.scale, pipe.mono.shift) == (common.DPT_SEEDED["scale"],
+                                                  common.DPT_SEEDED["shift"])
+    state = {k: torch.full_like(v, 0.01) for k, v in pipe.mono.state_dict().items()}
+    torch.save(state, tmp_path / "dpt.pt")
+    loaded = common.build_pipeline(cfg, "random", str(tmp_path / "dpt.pt"), tiny=True,
+                                   device="cpu")
+    assert all(torch.equal(v, state[k]) for k, v in loaded.mono.state_dict().items())
+    with pytest.raises(ValueError, match="--native_s2d: DPT-Large has no input_s2d form"):
+        common.build_pipeline(cfg, "random", "random", tiny=True, native_s2d=True,
+                              device="cpu")
+    for bad in ("vit_large", "dpt"):
+        with pytest.raises(ValueError, match="unknown monodepth encoder"):
+            common.apply_encoder_override(cfg, bad)
+    monkeypatch.chdir(tmp_path)
+    seq.main(["--input_folder", str(frame_dir / "*.png"), "--semantic_model", "random",
+              "--monodepth_checkpoint", "random", "--monodepth_encoder", "dpt_large",
+              "--input_height", "128", "--input_width", "256", "--dev_tiny", "--device", "cpu",
+              "--batch", "2", "--output_name", "dpt"])
+    imgs = tmp_path / "results" / "dpt" / "result_sequence_imgs"
+    assert sorted(os.listdir(imgs)) == ["test_1.png", "test_2.png"]

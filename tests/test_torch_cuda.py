@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from semantic_depth_tpu_torch import camera, config, pipeline
-from semantic_depth_tpu_torch.models import FCN8s, Monodepth
+from semantic_depth_tpu_torch.models import DPT, FCN8s, Monodepth
 from semantic_depth_tpu_torch.io.ply import PlyCloud
 from semantic_depth_tpu_torch.ops import _cuda, exact_knn, knn_grid, mad, radius, resize
 from semantic_depth_tpu_torch.utils import outlier_removal
@@ -582,22 +582,28 @@ def _mono_graph_counts(pipe):
 
 
 def _mono_pipe(cuda, net="vgg", b=8):
-    """A bfloat16 pipeline at a cell's widths: ``vgg`` and ``resnet50`` the
-    munich flip batch at 256x512, ``native`` the s2d vgg at 1024x2048 with
-    the flip off, ``scenes`` the stand-in ``SceneMono`` of ``b`` scenes."""
+    """A bfloat16 pipeline at a cell's widths: ``vgg``, ``resnet50`` and
+    ``dpt_large`` the munich flip batch at 256x512, ``native`` the s2d vgg
+    at 1024x2048 with the flip off, ``scenes`` the stand-in ``SceneMono`` of
+    ``b`` scenes."""
     from portbench.harness.standins import SceneFCN, SceneMono
+    from semantic_depth_tpu_torch.cli.common import DPT_SEEDED
 
     native = net == "native"
     cfg = config.munich_pipeline_config(
         compute_dtype="bfloat16", **(dict(input_height=1024, input_width=2048) if native else {}))
     cfg = dataclasses.replace(cfg, monodepth=dataclasses.replace(
-        cfg.monodepth, encoder="resnet50" if net == "resnet50" else "vgg",
+        cfg.monodepth, encoder=net if net in ("resnet50", "dpt_large") else "vgg",
         flip_average=not native))
     fcn = FCN8s(width_mult=0.0625, fc_channels=32)
     if net == "scenes":
         _, labels, disp_norm = scene_pool(b, 256, 512, seed=5)[:3]
         fcn = SceneFCN(torch.from_numpy(labels))
         mono = SceneMono(torch.from_numpy(disp_norm), True)
+    elif net == "dpt_large":
+        torch.manual_seed(1)
+        with torch.device(cuda):
+            mono = DPT(compute_dtype=torch.bfloat16, **DPT_SEEDED)
     else:
         torch.manual_seed(1)
         with torch.device(cuda):
@@ -618,8 +624,8 @@ def _same_bits(a, b) -> bool:
 
 
 @pytest.mark.parametrize("net, b", [
-    ("vgg", 1), ("vgg", 8), ("resnet50", 8), ("native", 2), ("scenes", 8),
-], ids=["frame1", "batch8", "resnet50", "native", "scenes"])
+    ("vgg", 1), ("vgg", 8), ("resnet50", 8), ("native", 2), ("scenes", 8), ("dpt_large", 8),
+], ids=["frame1", "batch8", "resnet50", "native", "scenes", "dpt_large"])
 def test_replayed_monodepth_is_bit_equal_to_the_eager_body(cuda, net, b):
     """At the cells' shapes (the native s2d path at batch 2): the first call
     of a key runs eagerly, the second captures, the rest replay, each the
@@ -638,6 +644,38 @@ def test_replayed_monodepth_is_bit_equal_to_the_eager_body(cuda, net, b):
     assert {k: after[k] - before[k] for k in after} == dict(eager=1, captures=1, replays=3)
     for i, (out, m) in enumerate(zip(outs, mults)):
         assert _same_bits(out, want[i % 2] * m), i
+
+
+def test_dpt_replays_count_sdpa_and_run_a_fused_attention_kernel(cuda):
+    """DPT-Large at the cell's batch (16 images of 513 tokens): the graph's
+    counts go 1 eager, 1 capture, then replays; ``sdpa`` rises by the 24
+    blocks at each forward, a replay's included; and the profiler sees a
+    fused attention kernel (``attention_roofline.SDPA``), not the math
+    path's softmax."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from portbench.metrics import attention_roofline
+    from semantic_depth_tpu_torch import runtime
+
+    pipe = _mono_pipe(cuda, "dpt_large", 8)
+    small, mult = _smalls(pipe, 8, cuda)[0], pipeline._scalar(250.0)
+    with torch.inference_mode():
+        before = runtime.launches["sdpa"]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pipe._batch_disparity(small, mult)
+            torch.cuda.synchronize()
+        assert runtime.launches["sdpa"] - before == 24
+        for i in range(4):
+            pipe._batch_disparity(small, mult)
+            torch.cuda.synchronize()
+            assert runtime.launches["sdpa"] - before == 24 * (i + 2)
+    assert _mono_graph_counts(pipe) == dict(eager=1, captures=1, replays=3)
+    names = {e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA}
+    fused = sorted(n for n in names if any(k in n for k in attention_roofline.SDPA))
+    print("attention kernels:", fused)
+    assert fused, sorted(names)
+    assert not any("softmax" in n.lower() for n in names), sorted(names)
 
 
 def test_replayed_process_batch_makes_no_host_sync_in_monodepth(cuda):

@@ -1,6 +1,7 @@
 """Monodepth's own spans on the CPU: under ``runtime.tracing()`` one
 ``process_batch`` opens ``sd.mono.encoder`` and ``sd.mono.decoder`` once
-each, inside ``sd.monodepth``, for both encoders; with tracing off
+each, inside ``sd.monodepth``, for both encoders and for DPT-Large
+(``--dev_tiny``'s sizes); with tracing off
 ``stats()`` records none."""
 
 import numpy as np
@@ -9,20 +10,23 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from semantic_depth_tpu_torch import config, pipeline, runtime
-from semantic_depth_tpu_torch.cli.common import apply_encoder_override
-from semantic_depth_tpu_torch.models import FCN8s, Monodepth
+from semantic_depth_tpu_torch.cli.common import DPT_TINY, apply_encoder_override
+from semantic_depth_tpu_torch.models import DPT, FCN8s, Monodepth
 
 torch.set_num_threads(2)  # six xdist workers share the machine
 
 MONO = ("sd.mono.encoder", "sd.mono.decoder")
 
 
-@pytest.fixture(scope="module", params=["vgg", "resnet50"])
+@pytest.fixture(scope="module", params=["vgg", "resnet50", "dpt_large"])
 def pipe(request):
     torch.manual_seed(0)
     cfg = apply_encoder_override(config.munich_pipeline_config(input_height=128,
                                                                input_width=256), request.param)
-    mono = Monodepth(encoder=request.param, width_mult=0.0625)
+    if request.param == "dpt_large":
+        mono = DPT(**DPT_TINY, shift=0.04)
+    else:
+        mono = Monodepth(encoder=request.param, width_mult=0.0625)
     return pipeline.SemanticDepthPipeline(cfg, FCN8s(width_mult=0.0625, fc_channels=32), mono,
                                           device="cpu")
 
